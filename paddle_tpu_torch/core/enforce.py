@@ -1,0 +1,111 @@
+"""Error taxonomy + enforce helpers.
+
+A copy of ``paddle_tpu/core/enforce.py`` (pure Python), kept in the port
+so that it never imports the JAX package. The analogue of the reference's
+PADDLE_ENFORCE_* macros and typed error codes (ref:
+paddle/fluid/platform/enforce.h, platform/errors.h).
+Python-first: errors are exception classes carrying an error-code taxonomy
+identical to the reference's ``platform::errors::*`` set, and enforce_*
+helpers raise them with op provenance when available (the executor /
+tracer attach the current op via `op_scope`).
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+
+
+class EnforceNotMet(RuntimeError):
+    """Base framework error (ref: enforce.h EnforceNotMet)."""
+
+    code = "UNKNOWN"
+
+    def __init__(self, message: str):
+        op = _current_op()
+        if op:
+            message = f"{message}\n  [operator < {op} > error]"
+        super().__init__(f"({self.code}) {message}")
+
+
+class InvalidArgumentError(EnforceNotMet):
+    code = "InvalidArgument"
+
+
+class NotFoundError(EnforceNotMet):
+    code = "NotFound"
+
+
+class OutOfRangeError(EnforceNotMet):
+    code = "OutOfRange"
+
+
+class AlreadyExistsError(EnforceNotMet):
+    code = "AlreadyExists"
+
+
+class PermissionDeniedError(EnforceNotMet):
+    code = "PermissionDenied"
+
+
+class ResourceExhaustedError(EnforceNotMet):
+    code = "ResourceExhausted"
+
+
+class PreconditionNotMetError(EnforceNotMet):
+    code = "PreconditionNotMet"
+
+
+class ExecutionTimeoutError(EnforceNotMet):
+    code = "ExecutionTimeout"
+
+
+class UnimplementedError(EnforceNotMet):
+    code = "Unimplemented"
+
+
+class UnavailableError(EnforceNotMet):
+    code = "Unavailable"
+
+
+class FatalError(EnforceNotMet):
+    code = "Fatal"
+
+
+class ExternalError(EnforceNotMet):
+    code = "External"
+
+
+_tls = threading.local()
+
+
+def _current_op():
+    return getattr(_tls, "op_stack", None) and _tls.op_stack[-1]
+
+
+@contextlib.contextmanager
+def op_scope(op_type: str):
+    """Attach op provenance to any error raised inside (ref: op_call_stack.cc)."""
+    stack = getattr(_tls, "op_stack", None)
+    if stack is None:
+        stack = _tls.op_stack = []
+    stack.append(op_type)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def enforce(cond, message: str, exc=InvalidArgumentError):
+    if not cond:
+        raise exc(message)
+
+
+def enforce_eq(a, b, message: str = ""):
+    if a != b:
+        raise InvalidArgumentError(f"expected {a!r} == {b!r}. {message}")
+
+
+def enforce_not_none(v, message: str):
+    if v is None:
+        raise NotFoundError(message)
+    return v

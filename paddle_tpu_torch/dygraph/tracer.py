@@ -1,0 +1,81 @@
+"""Eager op execution with the reference's AMP casts.
+
+Port of ``paddle_tpu/dygraph/tracer.py``. ``trace_op`` looks the op up in
+the registry, applies the O1/O2 input cast with the reference's white and
+black lists (``:94-143``; not ``torch.autocast``'s own lists) and runs
+it. Torch autograd records the graph, so the JAX package's tape nodes
+and ``trace_with_fn`` have no counterpart.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import dtype as dtypes
+from ..core.enforce import op_scope
+from ..core.registry import OpInfoMap
+from .varbase import to_variable
+
+no_grad = torch.no_grad
+AMP_DTYPE = dtypes.bfloat16
+
+_tls = threading.local()
+
+
+# ---- AMP autocast lists (ref: imperative/amp_auto_cast.cc:38,42) ----
+AMP_WHITE_LIST = {
+    "conv2d", "matmul", "matmul_v2", "mul", "bmm", "depthwise_conv2d",
+    "conv3d", "addmm",
+}
+AMP_BLACK_LIST = {
+    "exp", "log", "log2", "log10", "mean", "reduce_mean", "reduce_sum",
+    "softmax", "log_softmax", "softmax_with_cross_entropy", "cross_entropy",
+    "cross_entropy2", "sigmoid_cross_entropy_with_logits",
+    "layer_norm", "p_norm", "squared_l2_norm", "cumsum",
+}
+
+
+def set_amp_level(level: str):
+    """The calling thread's AMP level: "O0" (off), "O1" or "O2"."""
+    _tls.amp_level = level
+
+
+def amp_level() -> str:
+    return getattr(_tls, "amp_level", "O0")
+
+
+def _amp_cast_inputs(op_type: str, raw_inputs: Dict[str, List]):
+    """O1 autocast (ref: amp_auto_cast.cc:116 AutoCastInputs)."""
+    if op_type in AMP_WHITE_LIST:
+        target = AMP_DTYPE
+    elif op_type in AMP_BLACK_LIST:
+        target = dtypes.float32
+    else:
+        return raw_inputs
+    castable = (dtypes.float32, dtypes.float16, dtypes.bfloat16)
+    return {slot: [v.to(target) if v.dtype in castable and v.dtype != target
+                   else v for v in vals]
+            for slot, vals in raw_inputs.items()}
+
+
+def trace_op(op_type: str, inputs: Dict[str, Sequence],
+             attrs: Optional[dict] = None,
+             out_slots: Optional[Sequence[str]] = None) -> List[torch.Tensor]:
+    """Run a registered op eagerly; returns its outputs in ``out_slots``
+    order (every output slot when None)."""
+    attrs = dict(attrs or {})
+    opdef = OpInfoMap.instance().get(op_type)
+    with op_scope(op_type):
+        raw_inputs = {slot: [v if isinstance(v, torch.Tensor)
+                             else to_variable(np.asarray(v)) for v in vals]
+                      for slot, vals in inputs.items() if vals}
+        if amp_level() in ("O1", "O2"):
+            raw_inputs = _amp_cast_inputs(op_type, raw_inputs)
+        outs = opdef.compute(raw_inputs, attrs)
+    result: List[torch.Tensor] = []
+    for slot in (out_slots if out_slots is not None else list(outs)):
+        result.extend(v for v in outs.get(slot, []) if v is not None)
+    return result

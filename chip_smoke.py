@@ -6,13 +6,20 @@
 Phases, each of which fails the run (non-zero exit) when a check fails:
   1. the card: name, power limit and device count;
   2. build the flash-attention kernels from paddle_tpu_torch/csrc with nvcc
-     (sm_90a) and print the build time and ptxas' register / shared-memory
-     / spill report;
+     (sm_90a) and print the build time, ptxas' register / shared-memory /
+     spill report, each kernel's tensor-core (HMMA) instructions in its SASS
+     (cuobjdump), and its blocks per SM and waves at the BERT-base grid;
   3. hold each kernel (K1 forward, K2 dQ, K3 dK/dV) against its plain
-     PyTorch version on the card, in fp32 and bf16, at BERT-base's shape and
-     at the cases of tests/test_flash_tpu.py (ragged S, D=128, causal), also
-     through the autograd Function; time each kernel with CUDA events beside
-     its bound, its plain version and torch's SDPA (a yardstick only);
+     PyTorch version on the card, in fp32 and bf16, at BERT-base's shape, at
+     the cases of tests/test_flash_tpu.py (ragged S, D=128, causal), at
+     Sq != Sk and at S = 17 and 65, also through the autograd Function;
+     check that two launches of K2 and K3 give the same bits, and that
+     their gradients at BERT-base hold fp32 accuracy against float64 (a
+     bound that plain TF32 fails); time each kernel with CUDA events beside
+     its bound on the units it runs on (K1 the fp32 CUDA cores, K2 and K3
+     the tensor cores in 3xTF32) and both yardsticks, its plain version and
+     torch's SDPA (a yardstick only; SDPA's backward stands beside the
+     K2 + K3 pair);
   4. BERT-tiny (head dim 64) for 2 O0 steps on the card and on the CPU
      from the same weights: losses and parameters agree;
   5. the main path: BERT-base pretraining through BertForPretraining,
@@ -23,9 +30,12 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
+import ctypes
 import functools
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -35,20 +45,41 @@ import torch
 PEAK_BYTES_S = 3.35e12                       # H100 SXM HBM3
 PEAK_OPS_S = {torch.float32: 67e12,          # fp32, CUDA cores
               torch.bfloat16: 989e12}        # bf16 dense, tensor cores
+# fp32 on the tensor cores as 3xTF32: three TF32 passes at 495 TFLOP/s
+# (timed at fp32 only, what the O1 main path feeds the kernels)
+PEAK_TC_OPS_S = {torch.float32: 495e12 / 3}
+# the units each kernel's products run on; its bound_ms is theirs
+UNITS = {"flash_fwd": ("fp32 CUDA cores", PEAK_OPS_S),
+         "flash_bwd_dq": ("tensor cores, 3xTF32", PEAK_TC_OPS_S),
+         "flash_bwd_dkv": ("tensor cores, 3xTF32", PEAK_TC_OPS_S)}
 TOL = {torch.float32: {"o": (1e-4, 1e-5), "grad": (2e-3, 3e-4)},
        torch.bfloat16: {"o": (2e-2, 2e-2), "grad": (2e-2, 2e-2)}}
 LSE_TOL = (1e-4, 1e-5)
+# Relative Frobenius error of K2/K3's dq, dk and dv against float64 at
+# BERT-base fp32, by the factor q is scaled with (8: a sharp softmax).
+# 3xTF32 reads about 2e-6 and 1e-5 there; the same kernels in plain TF32
+# (the lo passes taken out) fail the bound (tests/test_torch_kernels_cuda.py).
+FP64_BOUND = {1.0: 3e-5, 8.0: 1.5e-4}
 BERT_SHAPE = (16, 128, 12, 64, False)        # B, S, H, D, causal
-CASES = [BERT_SHAPE,
+CASES = [(b, s, s, h, d, c) for (b, s, h, d, c) in [      # B, Sq, Sk, H, D, causal
+         BERT_SHAPE,
          (2, 128, 12, 64, False), (1, 256, 4, 64, True),   # test_flash_tpu
          (2, 100, 3, 64, False), (1, 512, 8, 128, True),
          (2, 128, 2, 64, False), (2, 100, 3, 64, True),
          (1, 130, 2, 128, False),
-         (2, 256, 8, 64, True), (1, 384, 4, 128, False)]
+         (2, 256, 8, 64, True), (1, 384, 4, 128, False),
+         (2, 17, 3, 64, True), (2, 65, 2, 64, False)]] + [
+         (1, 64, 192, 4, 64, False), (1, 64, 192, 4, 64, True),  # Sq != Sk
+         (2, 130, 60, 3, 64, False), (2, 130, 60, 3, 64, True),
+         (1, 130, 60, 2, 128, True)]
 SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 REPLACES = {"flash_fwd": "paddle_tpu/ops/flash_attention.py:217",
             "flash_bwd_dq": "paddle_tpu/ops/flash_attention.py:401",
             "flash_bwd_dkv": "paddle_tpu/ops/flash_attention.py:415"}
+KERNEL_FN = {"flash_fwd": "flash_fwd_kernel",       # wrapper -> CUDA kernel
+             "flash_bwd_dq": "flash_bwd_dq_kernel",
+             "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+PAIR = "flash_bwd_dq+flash_bwd_dkv"          # what SDPA's backward covers
 
 
 class CheckFailed(RuntimeError):
@@ -108,10 +139,12 @@ def cuda_ms(fn, n=20):
     return start.elapsed_time(end) / n
 
 
-def bound(kernel, b, s, h, d, dtype):
+def bound(kernel, b, s, h, d, dtype, peak_ops=PEAK_OPS_S):
     """Least time for the work: bytes (each input read once, each output
     written once) over the memory rate, operations over the peak rate of
-    the input type; returns (ms, "bytes" | "operations")."""
+    the input type in ``peak_ops`` (the fp32 CUDA cores by default,
+    PEAK_TC_OPS_S for the tensor cores); returns (ms, "bytes" |
+    "operations")."""
     el = torch.finfo(dtype).bits // 8
     t = b * s * h * d * el                       # one [B, S, H, D] tensor
     r = b * h * s * 4                            # one [B, H, S] fp32 row
@@ -120,7 +153,7 @@ def bound(kernel, b, s, h, d, dtype):
                    "flash_bwd_dkv": (6 * t + 2 * r, 4)}[kernel]  # q k v dO lse delta -> dk dv
     ops = 2 * mm * b * h * s * s * d             # mm products of [S,S,D]
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S[dtype] * 1e3
+    t_ops = ops / peak_ops[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -129,6 +162,42 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+_INSTANCE = re.compile(
+    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def hmma_counts(path):
+    """(tensor-core HMMA instructions, all instructions) in each kernel's
+    SASS, by (kernel, "f32" | "bf16", D), from cuobjdump --dump-sass."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = _INSTANCE.search(line)
+            key = m and (m.group(1), "f32" if m.group(2) == "f" else "bf16",
+                         int(m.group(3)))
+            if key:
+                counts[key] = [0, 0]
+        elif key and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[key][1] += 1
+            counts[key][0] += "HMMA" in line
+    return counts
+
+
+def occupancy(lib, which, dtype_code, d):
+    """(blocks an SM holds, threads a block, dynamic shared bytes, rows a
+    tile) of kernel ``which`` (0 K1, 1 K2, 2 K3), from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    info = (ctypes.c_int * 4)()
+    err = lib.ptt_flash_occupancy(which, dtype_code, d,
+                                  ctypes.addressof(info))
+    check(err == 0, f"occupancy query failed: CUDA error {err}")
+    return tuple(info)
 
 
 def phase_build(kernels):
@@ -141,18 +210,39 @@ def phase_build(kernels):
             if any(k in line for k in ("Compiling entry", "registers",
                                        "spill", "smem")):
                 print(f"[build]   {line.strip()}")
+    counts = hmma_counts(kernels._target("flash_attention"))
+    for key in sorted(counts):
+        hmma, total = counts[key]
+        print(f"[build] {key[0]} {key[1]} D{key[2]}: {hmma} HMMA "
+              f"(tensor-core) instructions of {total} in its SASS")
+    for wrapper in ("flash_bwd_dq", "flash_bwd_dkv"):
+        fn = KERNEL_FN[wrapper]
+        for key in ((fn, "f32", 64), (fn, "f32", 128), (fn, "bf16", 64),
+                    (fn, "bf16", 128)):
+            check(counts.get(key, [0])[0] > 0, f"{key}: no HMMA in its SASS")
+    lib = kernels.library("flash_attention")
+    b, s, h, d, _ = BERT_SHAPE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for which, wrapper in enumerate(REPLACES):
+        for dtype_code, dname in ((0, "f32"), (1, "bf16")):
+            blocks, threads, smem, rows = occupancy(lib, which, dtype_code, d)
+            grid = b * h * -(-s // rows)
+            print(f"[build] {KERNEL_FN[wrapper]} {dname} D{d}: {blocks} "
+                  f"blocks/SM ({threads} threads, {smem} B shared); BERT-base "
+                  f"grid {grid} blocks on {sms} SMs = "
+                  f"{grid / (blocks * sms):.3f} waves")
 
 
 def phase_kernels(fa, dev):
     errs = {w.__name__: 0.0 for w in fa.WRAPPERS}
-    for (b, s, h, d, causal) in CASES:
+    for (b, sq, sk, h, d, causal) in CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            gen = torch.Generator(device=dev).manual_seed(b * s + h + d)
-            q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
-                          .to(dtype) for _ in range(4))
+            gen = torch.Generator(device=dev).manual_seed(b * sq + sk + h + d)
+            q, k, v, g = (torch.randn(b, n, h, d, generator=gen, device=dev)
+                          .to(dtype) for n in (sq, sk, sk, sq))
             scale = 1.0 / math.sqrt(d)
             tol = TOL[dtype]
-            print(f"[check] B{b} S{s} H{h} D{d} causal={causal} "
+            print(f"[check] B{b} Sq{sq} Sk{sk} H{h} D{d} causal={causal} "
                   f"{str(dtype).split('.')[-1]}")
             o, lse = fa.flash_fwd(q, k, v, causal, scale)
             o_r, lse_r = fa.blockwise_attention(q, k, v, causal=causal,
@@ -191,6 +281,67 @@ def phase_kernels(fa, dev):
     return errs
 
 
+def phase_determinism(fa, dev):
+    """No atomics in K2 and K3: two launches on the same inputs give the
+    same bits."""
+    for (b, sq, sk, h, d, causal) in (CASES[0], (2, 130, 60, 3, 64, True)):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        q, k, v, g = (torch.randn(b, n, h, d, generator=gen, device=dev)
+                      for n in (sq, sk, sk, sq))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
+        runs = []
+        for _ in range(2):
+            dq, delta = fa.flash_bwd_dq(q, k, v, o, g, lse, causal, scale)
+            runs.append((dq, delta) + fa.flash_bwd_dkv(
+                q, k, v, g, lse, delta, causal, scale))
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        print(f"[determinism] B{b} Sq{sq} Sk{sk} causal={causal}: two "
+              f"launches of K2 and K3 {'bitwise equal' if same else 'DIFFER'}")
+        check(same, "K2/K3 are not bitwise deterministic")
+
+
+def fp64_errors(fa, dev, q_mul):
+    """Relative Frobenius error of K2/K3's dq, dk and dv (through the
+    wrappers) against float64 at BERT-base: fp32 inputs with q scaled by
+    q_mul, o and lse from float64 rounded to fp32, and the reference the
+    exact function of those fp32 inputs."""
+    b, s, h, d, causal = BERT_SHAPE
+    scale = 1.0 / math.sqrt(d)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                  for _ in range(4))
+    q = q * q_mul
+    qd, kd, vd, gd = (t.double() for t in (q, k, v, g))
+    sc = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    lse = torch.logsumexp(sc, -1).float()
+    p = torch.exp(sc - lse.double()[..., None])
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vd).float().contiguous()
+    delta = torch.einsum("bqhd,bqhd->bhq", gd, o.double())
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", gd, vd)
+              - delta[..., None]) * scale
+    want = (torch.einsum("bhqk,bkhd->bqhd", ds, kd),
+            torch.einsum("bhqk,bqhd->bkhd", ds, qd),
+            torch.einsum("bhqk,bqhd->bkhd", p, gd))
+    dq, delta32 = fa.flash_bwd_dq(q, k, v, o, g, lse, causal, scale)
+    got = (dq,) + fa.flash_bwd_dkv(q, k, v, g, lse, delta32, causal, scale)
+    return {name: ((x.double() - y).norm() / y.norm()).item()
+            for name, x, y in zip(("dq", "dk", "dv"), got, want)}
+
+
+def phase_fp64(fa, dev):
+    """fp32 accuracy on TF32 tensor cores: K2/K3 against float64 within
+    FP64_BOUND, a bound that plain TF32 does not meet."""
+    for q_mul, limit in FP64_BOUND.items():
+        errs = fp64_errors(fa, dev, q_mul)
+        ok = max(errs.values()) <= limit
+        print(f"[fp64] BERT-base q*{q_mul:g}: relative Frobenius error "
+              + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (bound {limit:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"K2/K3 against float64 at q*{q_mul:g}: {errs}")
+
+
 def phase_timing(fa, dev):
     b, s, h, d, causal = BERT_SHAPE
     dtype = torch.float32            # what the O1 main path feeds them
@@ -212,24 +363,47 @@ def phase_timing(fa, dev):
     gt = g.transpose(1, 2)
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
         out, (qr, kr, vr), gt, retain_graph=True))
+
+    def pair():
+        _, delta_ = fa.flash_bwd_dq(q, k, v, o, g, lse, causal, scale)
+        fa.flash_bwd_dkv(q, k, v, g, lse, delta_, causal, scale)
+
     timed = {
         "flash_fwd": (cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
                       plain_fwd, sdpa_fwd),
         "flash_bwd_dq": (cuda_ms(lambda: fa.flash_bwd_dq(
-            q, k, v, o, g, lse, causal, scale)), plain_bwd, None),
+            q, k, v, o, g, lse, causal, scale)), plain_bwd, sdpa_bwd),
         "flash_bwd_dkv": (cuda_ms(lambda: fa.flash_bwd_dkv(
-            q, k, v, g, lse, delta, causal, scale)), plain_bwd, None),
+            q, k, v, g, lse, delta, causal, scale)), plain_bwd, sdpa_bwd),
     }
+    pair_ms = cuda_ms(pair)
     rows = {}
     for name, (ms, plain_ms, lib_ms) in timed.items():
-        bound_ms, bound_by = bound(name, b, s, h, d, dtype)
+        units, peak = UNITS[name]
+        bound_ms, bound_by = bound(name, b, s, h, d, dtype, peak)
+        fp_ms, fp_by = bound(name, b, s, h, d, dtype)
+        tc_ms, tc_by = bound(name, b, s, h, d, dtype, PEAK_TC_OPS_S)
+        # both yardsticks stay beside the path's own bound: the fp32 one
+        # keeps shares comparable with the CUDA-core kernels of before
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=lib_ms)
+                          bound_by=bound_by, library_ms=lib_ms,
+                          bound_units=units,
+                          bound_fp32_cores_ms=fp_ms,
+                          bound_fp32_cores_by=fp_by,
+                          bound_tensor_core_ms=tc_ms,
+                          bound_tensor_core_by=tc_by)
+        if name != "flash_fwd":
+            rows[name]["library_covers"] = PAIR
         print(f"[time] {name:<14} {ms:.4f} ms  bound {bound_ms:.4f} ms "
-              f"({bound_by})  plain {plain_ms:.4f} ms  library "
+              f"({bound_by}, {units}; {bound_ms / ms:.1%})  fp32-core "
+              f"bound {fp_ms:.4f} ms ({fp_by}; {fp_ms / ms:.1%})  "
+              f"tensor-core bound {tc_ms:.4f} ms ({tc_by}; {tc_ms / ms:.1%})"
+              f"  plain {plain_ms:.4f} ms  library "
               f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-    print(f"[time] yardstick: SDPA backward (dq, dk, dv in one call) "
-          f"{sdpa_bwd:.4f} ms; the plain backward above computes all three")
+    print(f"[time] K2 + K3 pair {pair_ms:.4f} ms against SDPA backward (dq, "
+          f"dk, dv in one call) {sdpa_bwd:.4f} ms: "
+          f"{pair_ms / sdpa_bwd:.3f}x; the plain backward above computes "
+          f"all three")
     return rows
 
 
@@ -355,6 +529,8 @@ def main():
           f"{torch.cuda.device_count()}")
     phase_build(kernels)
     errs = phase_kernels(fa, dev)
+    phase_determinism(fa, dev)
+    phase_fp64(fa, dev)
     rows = phase_timing(fa, dev)
     phase_tiny(tpt, dev)
     launches = phase_bert(tpt, fa, dev)

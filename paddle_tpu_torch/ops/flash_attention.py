@@ -18,8 +18,9 @@ Port of ``paddle_tpu/ops/flash_attention.py``. Layout [B, S, H, D].
 
 Numerics: the plain versions take the score and P·V products in float32
 (the reference's ``preferred_element_type=float32``) and round P to the
-value dtype before P·V as the reference does. The kernels do every dot
-in full fp32 on the CUDA cores (no TF32) and round only their outputs.
+value dtype before P·V as the reference does. K1 does every dot in full
+fp32 on the CUDA cores; K2 and K3 on the tensor cores in 3xTF32 (fp32
+accuracy, no plain TF32). All three round only their outputs.
 """
 from __future__ import annotations
 
@@ -142,6 +143,10 @@ def _check_cuda(q, k, v, *more):
         raise InvalidArgumentError(
             f"flash kernels take tensors on one CUDA device, got "
             f"{[str(t.device) for t in ts]}")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise InvalidArgumentError(
+            "flash kernels take 16-byte aligned tensors (they copy rows "
+            "16 bytes at a time)")
 
 
 def _dims(q, k, scale, causal):

@@ -36,11 +36,13 @@ SOURCES = {
         "ptt_flash_fwd": [_P] * 5 + _DIMS + _TAIL,
         "ptt_flash_bwd_dq": [_P] * 8 + _DIMS + _TAIL,
         "ptt_flash_bwd_dkv": [_P] * 8 + _DIMS + _TAIL,
+        "ptt_flash_occupancy": [_I, _I, _I64, _P],   # kernel, dtype, D, int[4]
     },
 }
 
 _lock = threading.Lock()
-_libs: dict = {}
+_libs: dict = {}       # built library path -> loaded library
+_active: dict = {}     # source name -> the library path its wrappers launch
 # source name -> {"seconds": build time, "ptxas": nvcc's -Xptxas -v report}
 build_log: dict = {}
 
@@ -53,8 +55,9 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+def _target(name: str, src=None) -> Path:
+    src = Path(src) if src else CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
@@ -62,49 +65,59 @@ def _target(name: str) -> Path:
 def _load(name: str, path: Path):
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in SOURCES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _I
+        if hasattr(lib, fn):       # an older version may lack a query entry
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
     lib.ptt_error_string.argtypes = [_I]
     lib.ptt_error_string.restype = ctypes.c_char_p
-    _libs[name] = lib
+    _libs[path] = lib
 
 
-def build(names=None) -> dict:
+def build(names=None, sources=None) -> dict:
     """Build (or find already built) and load the named sources, all
-    ``nvcc`` processes started together. Returns :data:`build_log`."""
-    names = list(SOURCES) if names is None else list(names)
+    ``nvcc`` processes started together. ``sources`` maps a name to another
+    file to build in place of ``csrc/<name>.cu`` (a version to compare
+    with); the wrappers launch the library last built for a name. Returns
+    :data:`build_log`."""
+    sources = dict(sources or {})
+    names = list(SOURCES) if names is None and not sources else \
+        list(dict.fromkeys([*(names or ()), *sources]))
     with _lock:
-        todo = [n for n in names if n not in _libs]
+        targets = {n: (Path(sources.get(n, CSRC / f"{n}.cu")),
+                       _target(n, sources.get(n))) for n in names}
         procs = {}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        for name in todo:
-            out = _target(name)
+        for name, (src, out) in targets.items():
+            if out in _libs:
+                continue
             if out.exists():
                 build_log[name] = {"seconds": 0.0, "ptxas": "(cached build)"}
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)
         for name, (proc, tmp, out) in procs.items():
             report, _ = proc.communicate()
             if proc.returncode != 0:
-                raise ExternalError(f"nvcc failed on {name}.cu:\n{report}")
+                raise ExternalError(f"nvcc failed on {targets[name][0]}:\n"
+                                    f"{report}")
             os.replace(tmp, out)
             build_log[name] = {"seconds": time.perf_counter() - t0,
                                "ptxas": report}
-        for name in todo:
-            _load(name, _target(name))
+        for name, (_, out) in targets.items():
+            if out not in _libs:
+                _load(name, out)
+            _active[name] = out
     return build_log
 
 
 def library(name: str):
-    if name not in _libs:
+    if name not in _active:
         build([name])
-    return _libs[name]
+    return _libs[_active[name]]
 
 
 def check(lib, err: int, what: str):

@@ -9,7 +9,8 @@ Builds the main path as chip_smoke.py does (BertForPretraining, Momentum
 steps, then traces ``--steps`` steps with torch.profiler (CPU and CUDA
 activities). Prints the step's wall time, the device's busy time (union
 of kernel and copy intervals) and idle share, device time by kernel
-family, and the top kernels. Fails when there is no card or the trace
+family, the top kernels, and each of the port's flash kernels (ms a step,
+launches a step, us a launch). Fails when there is no card or the trace
 holds no device event.
 """
 import argparse
@@ -113,6 +114,11 @@ def main():
     for name, us in by_name.most_common(12):
         print(f"[profile]   {us / n / 1e3:8.3f} ms/step  x{counts[name] // n:<4}"
               f" {name[:110]}")
+    for name, us in sorted(by_name.items()):
+        if _family(name) == FAMILIES[0][0]:
+            print(f"[profile] port kernel {us / n / 1e3:.3f} ms/step  "
+                  f"x{counts[name] // n}  {us / counts[name]:.1f} us a launch"
+                  f"  {name.split('::')[-1].split('(')[0]}")
     return 0
 
 

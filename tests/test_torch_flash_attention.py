@@ -41,6 +41,13 @@ BWD_CASES = [
     (1, 130, 2, 128, False),     # ragged, d=128
 ]
 BF16_CASES = [(2, 100, 3, 64, True), (1, 130, 2, 128, False)]
+CROSS_CASES = [
+    # (b, sq, sk, h, d, causal): Sq != Sk, as tests/test_torch_kernels_cuda.py
+    (1, 64, 192, 4, 64, False),
+    (1, 64, 192, 4, 64, True),
+    (2, 130, 60, 3, 64, False),
+    (2, 130, 60, 3, 64, True),
+]
 
 O_TOL = dict(rtol=1e-4, atol=1e-5)
 G_TOL = dict(rtol=2e-3, atol=3e-4)
@@ -94,6 +101,33 @@ def test_plain_backward_matches_pallas(b, s, h, d, causal):
                                block_size=128)
     np.testing.assert_allclose(_np(delta), np.einsum(
         "bqhd,bqhd->bhq", g, np.asarray(o)), **O_TOL)
+    for got, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(_np(got), np.asarray(w), **G_TOL)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", CROSS_CASES)
+def test_plain_cross_lengths_match_pallas(b, sq, sk, h, d, causal):
+    """Sq != Sk, causal or not: the plain forward and backward (what the
+    card's kernels are held against) against the Pallas kernels."""
+    rs = np.random.RandomState(4)
+    q, g = (rs.randn(b, sq, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(b, sk, h, d).astype(np.float32) for _ in range(2))
+    scale = 1.0 / d ** 0.5
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    o_p, lse_p = jfa._flash_fwd_pallas(jq, jk, jv, causal, scale,
+                                       block_q=128, block_k=128,
+                                       interpret=True)
+    tq, tk, tv, tg = _t(q, k, v, g)
+    o, lse = tfa.flash_fwd(tq, tk, tv, causal, scale, block_size=128)
+    np.testing.assert_allclose(_np(o), np.asarray(o_p), **O_TOL)
+    np.testing.assert_allclose(_np(lse), np.asarray(lse_p), **O_TOL)
+    want = jfa._flash_bwd_pallas(jq, jk, jv, o_p, lse_p, jg, causal, scale,
+                                 block_q=128, block_k=128, interpret=True)
+    to, tlse = _t(np.asarray(o_p), np.asarray(lse_p))
+    dq, delta = tfa.flash_bwd_dq(tq, tk, tv, to, tg, tlse, causal, scale,
+                                 block_size=128)
+    dk, dv = tfa.flash_bwd_dkv(tq, tk, tv, tg, tlse, delta, causal, scale,
+                               block_size=128)
     for got, w in zip((dq, dk, dv), want):
         np.testing.assert_allclose(_np(got), np.asarray(w), **G_TOL)
 

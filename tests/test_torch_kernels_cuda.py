@@ -1,32 +1,50 @@
 """The flash kernels K1-K3 against their plain PyTorch versions on a CUDA
 card (needs a card; skips where there is none).
 
-This file imports torch and the port only, so it runs on a machine
-without JAX:
+This file imports torch, the port and chip_smoke.py (for its float64
+check) only, so it runs on a machine without JAX:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m gpu --noconftest
 
 Tolerances: fp32 o, lse and delta at rtol 1e-4 / atol 1e-5 and gradients
-at rtol 2e-3 / atol 3e-4 (both sides are full fp32; TF32 is off for the
-plain version's matmuls); bf16 outputs round to 8 mantissa bits, so
-rtol / atol 2e-2; lse is fp32 from the same widened products in both.
+at rtol 2e-3 / atol 3e-4 (both sides hold fp32 accuracy: K1 on the CUDA
+cores, K2 and K3 in 3xTF32, and TF32 is off for the plain version's
+matmuls); bf16 outputs round to 8 mantissa bits, so rtol / atol 2e-2;
+lse is fp32 from the same widened products in both. Beside the plain
+version, K2/K3's fp32 gradients are held against float64 within a bound
+that the same kernels in plain TF32 fail.
 """
 import math
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
 from paddle_tpu_torch.core.enforce import InvalidArgumentError
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import kernels
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (its float64 check and bounds)
+
+BERT_BASE = (16, 128, 128, 12, 64, False)
 CASES = [
-    # (b, s, h, d, causal): BERT-base, then tests/test_flash_tpu.py's
-    (16, 128, 12, 64, False),
-    (1, 256, 4, 64, True),
-    (2, 100, 3, 64, False),
-    (1, 512, 8, 128, True),
-    (2, 100, 3, 64, True),
-    (1, 130, 2, 128, False),
+    # (b, sq, sk, h, d, causal): BERT-base, then tests/test_flash_tpu.py's
+    BERT_BASE,
+    (1, 256, 256, 4, 64, True),
+    (2, 100, 100, 3, 64, False),
+    (1, 512, 512, 8, 128, True),
+    (2, 100, 100, 3, 64, True),
+    (1, 130, 130, 2, 128, False),
+    # Sq != Sk, and S that is not a multiple of 16 or 8
+    (1, 64, 192, 4, 64, False),
+    (1, 64, 192, 4, 64, True),
+    (2, 130, 60, 3, 64, False),
+    (2, 130, 60, 3, 64, True),
+    (1, 130, 60, 2, 128, True),
+    (2, 17, 17, 3, 64, True),
+    (2, 65, 65, 2, 64, False),
 ]
 TOL = {torch.float32: (dict(rtol=1e-4, atol=1e-5), dict(rtol=2e-3, atol=3e-4)),
        torch.bfloat16: (dict(rtol=2e-2, atol=2e-2), dict(rtol=2e-2, atol=2e-2))}
@@ -40,14 +58,17 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,d,causal", CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_match_plain(cuda, b, s, h, d, causal, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(11)
-    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=cuda)
-                  .to(dtype) for _ in range(4))
-    scale = 1.0 / math.sqrt(d)
+def _inputs(dev, b, sq, sk, h, d, dtype, seed=11):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, g = (torch.randn(b, sq, h, d, generator=gen, device=dev)
+            for _ in range(2))
+    k, v = (torch.randn(b, sk, h, d, generator=gen, device=dev)
+            for _ in range(2))
+    return tuple(t.to(dtype) for t in (q, k, v, g))
+
+
+def _check_against_plain(q, k, v, g, causal, dtype):
+    scale = 1.0 / math.sqrt(q.shape[-1])
     tol_o, tol_g = TOL[dtype]
     launches = fa.flash_fwd.launches
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
@@ -67,7 +88,83 @@ def test_kernels_match_plain(cuda, b, s, h, d, causal, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain(cuda, b, sq, sk, h, d, causal, dtype):
+    q, k, v, g = _inputs(cuda, b, sq, sk, h, d, dtype)
+    _check_against_plain(q, k, v, g, causal, dtype)
+
+
+@pytest.mark.gpu
+def test_sharp_softmax_matches_plain(cuda):
+    """q scaled by 8 at BERT-base: scores of spread ~8, so P is nearly
+    one-hot and an error in S shows as an error of exp(S)."""
+    b, sq, sk, h, d, causal = BERT_BASE
+    q, k, v, g = _inputs(cuda, b, sq, sk, h, d, torch.float32, seed=5)
+    _check_against_plain(q * 8.0, k, v, g, causal, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,d,causal",
+                         [BERT_BASE, (2, 130, 60, 3, 64, True)])
+def test_backward_kernels_bitwise_deterministic(cuda, b, sq, sk, h, d,
+                                                causal):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v, g = _inputs(cuda, b, sq, sk, h, d, torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    runs = []
+    for _ in range(2):
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, g, lse, causal, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale)
+        runs.append((dq, delta, dk, dv))
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
+# mma3's two lo passes: without them K2 and K3 compute in plain TF32
+LO_PASSES = ("  if constexpr (A_LO) mma_tf32(c, a.lo, b.hi);\n"
+             "  if constexpr (B_LO) mma_tf32(c, a.hi, b.lo);\n")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_mul", sorted(chip_smoke.FP64_BOUND))
+def test_backward_kernels_hold_fp32_accuracy(cuda, q_mul):
+    """K2/K3 against float64 at BERT-base, within a bound that plain TF32
+    does not meet (next test)."""
+    errs = chip_smoke.fp64_errors(fa, cuda, q_mul)
+    print(f"3xTF32 q*{q_mul:g}: relative Frobenius error {errs}")
+    assert max(errs.values()) <= chip_smoke.FP64_BOUND[q_mul], errs
+
+
+@pytest.mark.gpu
+def test_fp64_bound_rejects_plain_tf32(cuda, tmp_path):
+    """The same source with mma3's lo passes taken out (plain TF32) fails
+    the float64 bound on every gradient: the bound tells 3xTF32 from
+    TF32."""
+    src = (kernels.CSRC / "flash_attention.cu").read_text()
+    assert src.count(LO_PASSES) == 1
+    variant = tmp_path / "flash_attention.cu"
+    variant.write_text(src.replace(LO_PASSES, ""))
+    kernels.build(sources={"flash_attention": variant})
+    try:
+        errs = {m: chip_smoke.fp64_errors(fa, cuda, m)
+                for m in sorted(chip_smoke.FP64_BOUND)}
+    finally:
+        kernels.build(["flash_attention"])      # the wrappers' own again
+    print(f"plain TF32: relative Frobenius error {errs}")
+    for q_mul, limit in chip_smoke.FP64_BOUND.items():
+        assert min(errs[q_mul].values()) > limit, errs
+
+
+@pytest.mark.gpu
 def test_wrapper_raises_instead_of_falling_back(cuda):
     q = torch.zeros(1, 8, 2, 32, device=cuda)      # head dim 32: no kernel
     with pytest.raises(InvalidArgumentError):
         fa.flash_fwd(q, q, q, False, 1.0)
+    # contiguous, but 4 bytes past 16-byte alignment: K2 and K3 copy rows
+    # 16 bytes at a time
+    q = torch.zeros(8 * 2 * 64 + 1, device=cuda)[1:].view(1, 8, 2, 64)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(InvalidArgumentError):
+        fa.flash_bwd_dkv(q, q, q, q, lse, lse, False, 1.0)

@@ -22,15 +22,8 @@
 // the input type; accumulation is fp32 throughout. No atomics: K2 owns dQ
 // rows, K3 owns dK/dV rows, so results are bitwise deterministic.
 //
-// K1 (simple first; wgmma/TMA are later work): 64x64 tiles, 256 threads (a
-//   16x16 thread grid), each thread a 4 x (D/16) accumulator tile in
-//   registers; every dot is full fp32 on the CUDA cores. Rows are padded to
-//   D+1 floats so column walks hit 32 distinct banks; the online-softmax
-//   row state (m, l) lives in shared memory. At BERT-base (B16 S128 H12
-//   D64, fp32) its operations at the 67 TFLOP/s fp32 rate (12.0 us) take
-//   longer than its bytes at 3.35 TB/s (7.5 us): operations bound it.
-//
-// K2 and K3 run every product on the tensor cores, with fp32 accuracy:
+// All three kernels run every product on the tensor cores, with fp32
+// accuracy (wgmma and TMA are later work):
 //   * mma.sync m16n8k8 TF32 in the 3xTF32 scheme (CUTLASS's
 //     OpMultiplyAddFastF32): each fp32 operand x splits in registers, when
 //     its fragment is loaded, into hi = tf32(x) (rounded to nearest by two
@@ -40,13 +33,14 @@
 //     FMAs and 5e-4 for plain TF32, hi*hi alone).
 //     bf16 inputs are exact in TF32 (lo = 0): a product of two staged
 //     input tiles (S, dP) takes the hi*hi pass alone, and one whose A is
-//     the fp32 P or dS takes two (lo*hi, hi*hi). mma.sync and not wgmma:
-//     wgmma takes TF32 only K-major, and dS*K, P^T*dO and dS^T*Q contract
-//     along the sequence.
+//     the fp32 P or dS takes two (lo*hi, hi*hi); K1 rounds P to bf16
+//     before P*V, as the reference does, so both its products take one.
+//     mma.sync and not wgmma: wgmma takes TF32 only K-major, and P*V,
+//     dS*K, P^T*dO and dS^T*Q contract along the sequence.
 //   * A block is 4 warps; each warp owns 16 rows of the 64-row tile (q rows
-//     in K2, k rows in K3). K3 computes the transposed tiles S^T = K Q^T
-//     and dP^T = V dO^T, so P^T and dS^T, the A operands of dV += P^T dO and
-//     dK += dS^T Q, are rows the warp already holds.
+//     in K1 and K2, k rows in K3). K3 computes the transposed tiles
+//     S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T, the A operands of
+//     dV += P^T dO and dK += dS^T Q, are rows the warp already holds.
 //   * The accumulator of the first product becomes the A operand of the
 //     second in registers, with no shuffle and no shared memory: the
 //     contraction order inside an 8-wide step is free, so A's k-slot t is
@@ -55,19 +49,36 @@
 //   * Tiles are fp32 rows padded to D+4 floats (16-byte aligned rows; the
 //     fragment reads hit banks 4g+t or 8t+g, all 32 distinct), filled with
 //     16-byte cp.async copies (zero-fill past S). The block's own tile (Q
-//     and dO in K2, K and V in K3) is 64 rows; the streamed one comes in
-//     two 32-row stages, so the next stage loads while this one computes
-//     (cp.async.wait_group 1) in the room of one 64-row tile. That is
-//     68.5 KB at D=64, so 3 blocks of 128 threads fit an SM: the BERT-base
-//     grid (192 x 2 = 384 blocks) runs in one wave on 132 SMs.
+//     in K1, Q and dO in K2, K and V in K3) is 64 rows; the streamed one
+//     comes in two 32-row stages, so the next stage loads while this one
+//     computes, in the room of one 64-row tile. That is 68.5 KB at D=64
+//     for K2 and K3 (51 KB for K1), so 3 blocks of 128 threads fit an SM:
+//     the BERT-base grid (192 x 2 = 384 blocks) runs in one wave on 132
+//     SMs.
 //   * Masks at fragment granularity: a masked score (k >= Sk, q >= Sq,
 //     causal k > q) or a row whose lse is NEG_INF gives P = 0; causal stages
 //     and passes a warp cannot see are skipped; nothing is written past S.
 //   * K2's prologue reads O and dO with 16-byte coalesced loads (8 lanes a
 //     row) and writes delta = rowsum(dO * O) once a row; K3, launched after
 //     it on the same stream, reads it.
-// What bounds K2 and K3 at BERT-base fp32: bytes. Six [B, S, H, D] tensors
-// each at 3.35 TB/s take 11.3 us; the 3xTF32 products (3 and 4 [S, S, D]
+//   * K1 keeps S and P in the accumulator registers and the online softmax
+//     in the warp: thread (g, t) holds rows g and g+8 of its warp's 16, so
+//     a row's running max m is a max over the thread's 8 scores of a stage
+//     and two shuffles (lanes 1, 2), and its running sum l a per-thread
+//     share that is summed across the four lanes once, at the end. One
+//     barrier a stage: the copy of stage i+1 starts right after it, into
+//     the buffer every warp has left by then.
+// What bounds K1 at BERT-base fp32: bytes. Four [B, S, H, D] tensors (q,
+// k, v in, o out) at 3.35 TB/s take 7.5 us; its two [S, S, D] products in
+// 3xTF32 (three passes at 495 TFLOP/s) take 4.9 us, on the fp32 CUDA cores
+// 12.0 us. The design moves each byte once (Q staged once a
+// block, K and V once a q tile, S and P never leave the registers) and
+// keeps the next stage's copy in flight behind the products. On an H100
+// it runs in about 23 us, a third of the byte bound: the copies, barriers
+// and epilogue alone (no products) take 10.6 us, the lo passes and splits
+// 7.8 us (hi*hi alone: 15.2 us).
+// What bounds K2 and K3 at BERT-base fp32: bytes too. Six [B, S, H, D]
+// tensors each at 3.35 TB/s take 11.3 us; the 3xTF32 products (3 and 4 [S, S, D]
 // products, three passes each at 495 TFLOP/s) take 7.3 and 9.8 us, the
 // same products on the fp32 CUDA cores 18.0 and 24.0 us. chip_smoke.py
 // computes these bounds from each call's shapes. The kernels reach about
@@ -84,19 +95,7 @@
 
 namespace {
 
-constexpr int TILE = 64;          // rows of a q tile and of a k tile
-constexpr int NT = 256;           // threads a block: ty = t / 16, tx = t % 16
-constexpr int SP = TILE + 1;      // padded row of a [TILE][TILE] score tile
 constexpr float NEG_INF = -1e30f; // the reference's lse of an empty row
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {   // element strides of a [B, S, H, D] tensor; stride of D is 1
   int64_t b, s, h;
@@ -108,160 +107,8 @@ struct Shape {
   int causal;
 };
 
-// Rows [row0, row0 + TILE) of head (b, h) into a [TILE][D+1] fp32 tile;
-// rows at or past `len` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, Strides st, int b, int h,
-                                          int row0, int len) {
-  for (int i = threadIdx.x; i < TILE * D; i += NT) {
-    const int r = i / D, d = i % D;
-    const int s = row0 + r;
-    float x = 0.f;
-    if (s < len) x = to_f(src[b * st.b + s * st.s + h * st.h + d]);
-    dst[r * (D + 1) + d] = x;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K1: o = softmax(mask(q k^T * scale)) v and lse = m + log l, online softmax.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Strides sq_st, Strides sk_st,
-                 Shape sh) {
-  constexpr int P = D + 1;
-  constexpr int RD = D / 16;   // accumulator columns a thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + TILE * P;
-  float* sV = sK + TILE * P;
-  float* sS = sV + TILE * P;   // scores, then probabilities
-  float* sM = sS + TILE * SP;  // running row max
-  float* sL = sM + TILE;       // running row sum
-  float* sA = sL + TILE;       // this step's rescale factor
-
-  const int bh = blockIdx.x;
-  const int b = bh / sh.H, h = bh % sh.H;
-  const int q0 = blockIdx.y * TILE;
-  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
-
-  load_tile<T, D>(sQ, q, sq_st, b, h, q0, sh.Sq);
-  if (t < TILE) {
-    sM[t] = -INFINITY;
-    sL[t] = 0.f;
-  }
-  float acc[4][RD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
-
-  const int n_k = (sh.Sk + TILE - 1) / TILE;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * TILE;
-    // causal: a k tile that starts after this q tile's last row is skipped
-    if (sh.causal && k0 > q0 + TILE - 1) break;
-    load_tile<T, D>(sK, k, sk_st, b, h, k0, sh.Sk);
-    load_tile<T, D>(sV, v, sk_st, b, h, k0, sh.Sk);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * P + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * P + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kpos = k0 + c;
-        const bool ok = kpos < sh.Sk && (!sh.causal || kpos <= q0 + r);
-        sS[r * SP + c] = ok ? s[i][j] * sh.scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    {  // online softmax: four consecutive lanes own one row
-      const int r = t / 4, part = t % 4;
-      float mx = -INFINITY;
-      for (int m = 0; m < TILE / 4; ++m) mx = fmaxf(mx, sS[r * SP + part + 4 * m]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int m = 0; m < TILE / 4; ++m) {
-        const int idx = r * SP + part + 4 * m;
-        const float p = (m_new == -INFINITY) ? 0.f : expf(sS[idx] - m_new);
-        sS[idx] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = (m_new == -INFINITY) ? 1.f : expf(m_old - m_new);
-        sA[r] = alpha;
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = sA[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < RD; ++j) acc[i][j] *= alpha;
-    }
-    for (int kk = 0; kk < TILE; ++kk) {
-      float pv[4], vv[RD];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sS[(ty + 16 * i) * SP + kk];
-#pragma unroll
-      for (int j = 0; j < RD; ++j) vv[j] = sV[kk * P + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < RD; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int s = q0 + r;
-    if (s >= sh.Sq) continue;
-    const float l = sL[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int j = 0; j < RD; ++j) {
-      const int d = tx + 16 * j;
-      o[b * sq_st.b + s * sq_st.s + h * sq_st.h + d] = from_f<T>(acc[i][j] * inv);
-    }
-  }
-  if (t < TILE && q0 + t < sh.Sq) {
-    const float l = sL[t];
-    lse[(int64_t)bh * sh.Sq + q0 + t] = l > 0.f ? sM[t] + logf(l) : NEG_INF;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2 and K3: tensor-core helpers (mma.sync m16n8k8 TF32, 3xTF32)
+// Tensor-core helpers (mma.sync m16n8k8 TF32, 3xTF32)
 // ---------------------------------------------------------------------------
 constexpr int BW = 4;          // warps a block
 constexpr int BNT = 32 * BW;   // threads a block
@@ -407,10 +254,174 @@ __device__ __forceinline__ FragA acc_as_a(const float* c) {
   return frag_a(c[0], c[2], c[1], c[3]);
 }
 
+// K1: the Q tile and two stages of K and of V
+template <int D> constexpr size_t fwd_smem() {
+  return sizeof(float) * (BR + 4 * SR) * (D + 4);
+}
+
 // K2: the Q and dO tiles, two stages of K and of V, lse, delta; K3: the K
 // and V tiles, two stages of Q, dO, lse and delta
 template <int D> constexpr size_t bwd_smem() {
   return sizeof(float) * (4 * BR * (D + 4) + 2 * BR);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// K1: o = softmax(mask(q k^T * scale)) v and lse = m + log l, one block a
+// (b*h, q tile), the online softmax over 32-key stages in registers.
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(BNT, D == 64 ? 3 : 1)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse, Strides sq_st, Strides sk_st,
+                 Shape sh) {
+  constexpr int PS = D + 4;
+  constexpr int KD = D / 8;                 // 8-wide steps over the head dim
+  constexpr int NJ = SR / 8;                // 8-key steps a stage
+  constexpr bool X = std::is_same<T, float>::value;   // inputs and P have a lo part
+  extern __shared__ __align__(16) float bsmem[];
+  float* sQ = bsmem;
+  float* sK = sQ + BR * PS;                 // [2][SR][PS]
+  float* sV = sK + 2 * SR * PS;             // [2][SR][PS]
+
+  const int bh = blockIdx.x;
+  const int b = bh / sh.H, h = bh % sh.H;
+  const int q0 = blockIdx.y * BR;
+  const int g = lane_g(), t = lane_t();
+  const int wr = 16 * (threadIdx.x >> 5);   // the warp's first row of the tile
+  const int qp0 = q0 + wr + g, qp1 = qp0 + 8;   // the thread's two q rows
+  const int n_k = (sh.Sk + SR - 1) / SR;
+  // causal: a key stage that starts after this q tile's last row is skipped
+  const int end = sh.causal ? min(n_k, (q0 + BR - 1) / SR + 1) : n_k;
+  const float sl2 = sh.scale * LOG2E;       // exp(x scale) = exp2(x sl2)
+  auto stage_kv = [&](int i) {              // keys [i SR, i SR + SR) into buffer i & 1
+    stage_tile<T, D, SR>(sK + (i & 1) * SR * PS, k, sk_st, b, h, i * SR, sh.Sk);
+    stage_tile<T, D, SR>(sV + (i & 1) * SR * PS, v, sk_st, b, h, i * SR, sh.Sk);
+  };
+
+  if (end > 0) {
+    stage_tile<T, D, BR>(sQ, q, sq_st, b, h, q0, sh.Sq);
+    stage_kv(0);
+    cp_async_commit();
+  }
+
+  float acc[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // the running max of the raw scores q.k of rows qp0 and qp1 (-inf until
+  // they see a key) and this thread's share of their running sums
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < end; ++i) {
+    const float* cK = sK + (i & 1) * SR * PS;
+    const float* cV = sV + (i & 1) * SR * PS;
+    const int kb = i * SR;                  // the stage's first key
+    cp_async_wait<0>();                     // stage i, the one group in flight, has landed
+    __syncthreads();                        // for all; every warp is done with stage i - 1
+    if (i + 1 < end) {                      // so its buffer takes stage i + 1
+      stage_kv(i + 1);
+      cp_async_commit();
+    }
+    // causal: nothing to do when the stage's first key lies after the warp's last row
+    if (sh.causal && kb > q0 + wr + 15) continue;
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {       // S = Q K^T
+      const FragA qa = load_a<PS>(sQ, wr, 8 * kk);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        // each 8-wide step sums in a fresh accumulator and is added to S
+        // rounded to nearest: the tensor cores truncate what they add to
+        // a large accumulator, and exp(S) magnifies S's error
+        float c8[4] = {0.f, 0.f, 0.f, 0.f};
+        mma3<X, X>(c8, qa, load_b_rows<PS>(cK, 8 * j, 8 * kk));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += c8[e];
+      }
+    }
+    // a key past Sk, or (causal) after the row, scores -inf; only a stage
+    // that holds such a key for some row of the warp looks
+    if (kb + SR > sh.Sk || (sh.causal && kb + SR - 1 > q0 + wr)) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = kb + 8 * j + 2 * t + (e & 1);
+          if (kp >= sh.Sk || (sh.causal && kp > (e >= 2 ? qp1 : qp0))) s[j][e] = -INFINITY;
+        }
+    }
+    float mx0 = m0, mx1 = m1;               // the rows' new running max
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // P = exp2(s sl2 - c) and the rescale alpha = exp2(m sl2 - c), c the
+    // new max in log2 units; a row that has seen no key keeps m = -inf and
+    // takes c = 0, so its P is 0 (its acc and l are still 0)
+    const float c0 = mx0 == -INFINITY ? 0.f : mx0 * sl2;
+    const float c1 = mx1 == -INFINITY ? 0.f : mx1 * sl2;
+    const float a0 = exp2f(fmaf(m0, sl2, -c0)), a1 = exp2f(fmaf(m1, sl2, -c1));
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      acc[n][0] *= a0;
+      acc[n][1] *= a0;
+      acc[n][2] *= a1;
+      acc[n][3] *= a1;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool lower = e >= 2;
+        float p = exp2f(fmaf(s[j][e], sl2, lower ? -c1 : -c0));
+        if (lower) l1 += p; else l0 += p;
+        // bf16: P rounds to V's type before P V, as in the reference (l
+        // sums it unrounded); then it is exact in TF32 and needs no lo pass
+        if constexpr (!X) p = __bfloat162float(__float2bfloat16(p));
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {          // O += P V
+      const FragA pa = acc_as_a(s[j]);
+#pragma unroll
+      for (int n = 0; n < KD; ++n) mma3<X, X>(acc[n], pa, load_b_cols<PS>(cV, 8 * j, 8 * n));
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  const int64_t row0 = b * sq_st.b + (int64_t)qp0 * sq_st.s + h * sq_st.h;
+  const int64_t row1 = row0 + 8 * sq_st.s;
+#pragma unroll
+  for (int n = 0; n < KD; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (qp0 < sh.Sq) store2(o + row0 + c, acc[n][0] * inv0, acc[n][1] * inv0);
+    if (qp1 < sh.Sq) store2(o + row1 + c, acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  if (t == 0) {                             // an empty row: o = 0, lse = NEG_INF
+    float* lse_bh = lse + (int64_t)bh * sh.Sq;
+    if (qp0 < sh.Sq) lse_bh[qp0] = l0 > 0.f ? m0 * sh.scale + logf(l0) : NEG_INF;
+    if (qp1 < sh.Sq) lse_bh[qp1] = l1 > 0.f ? m1 * sh.scale + logf(l1) : NEG_INF;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -686,10 +697,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-template <int D> constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * TILE * (D + 1) + TILE * SP + 3 * TILE);
-}
-
 struct Args {
   const void *q, *k, *v, *o, *dout;
   const float *lse, *delta_in;
@@ -707,8 +714,8 @@ cudaError_t launch_fwd(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)(a.B * a.sh.H), (unsigned)((a.sh.Sq + TILE - 1) / TILE));
-  flash_fwd_kernel<T, D><<<grid, NT, smem, a.stream>>>(
+  dim3 grid((unsigned)(a.B * a.sh.H), (unsigned)((a.sh.Sq + BR - 1) / BR));
+  flash_fwd_kernel<T, D><<<grid, BNT, smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out_o, a.lse_out, a.sq_st, a.sk_st,
       a.sh);
   return cudaGetLastError();
@@ -768,7 +775,7 @@ template <typename T, int D> struct Dq { static cudaError_t run(const Args& a) {
 template <typename T, int D> struct Dkv { static cudaError_t run(const Args& a) { return launch_dkv<T, D>(a); } };
 template <typename T, int D> struct Occ {
   static cudaError_t run(const int& which, int* const& info) {
-    if (which == 0) return occupancy(flash_fwd_kernel<T, D>, NT, fwd_smem<D>(), TILE, info);
+    if (which == 0) return occupancy(flash_fwd_kernel<T, D>, BNT, fwd_smem<D>(), BR, info);
     if (which == 1) return occupancy(flash_bwd_dq_kernel<T, D>, BNT, bwd_smem<D>(), BR, info);
     return occupancy(flash_bwd_dkv_kernel<T, D>, BNT, bwd_smem<D>(), BR, info);
   }

@@ -18,9 +18,9 @@ Port of ``paddle_tpu/ops/flash_attention.py``. Layout [B, S, H, D].
 
 Numerics: the plain versions take the score and P·V products in float32
 (the reference's ``preferred_element_type=float32``) and round P to the
-value dtype before P·V as the reference does. K1 does every dot in full
-fp32 on the CUDA cores; K2 and K3 on the tensor cores in 3xTF32 (fp32
-accuracy, no plain TF32). All three round only their outputs.
+value dtype before P·V as the reference does, and so does K1. K1-K3 run
+every product on the tensor cores in 3xTF32 (fp32 accuracy, no plain
+TF32), and round only their outputs (and K1 its bf16 P).
 """
 from __future__ import annotations
 

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from paddle_tpu.core.registry import OpInfoMap as JaxOpInfoMap
 from paddle_tpu.ops import flash_attention as jfa
 from paddle_tpu_torch.core.enforce import InvalidArgumentError
@@ -180,6 +181,33 @@ def test_bf16_matches_jax(b, s, h, d, causal):
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(_np(got), np.asarray(w, np.float32),
                                    **BF16_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp64_reference_matches_jax_and_plain(causal):
+    """chip_smoke.attention_fp64, what the card holds K1's o and lse to,
+    computes the reference's function: JAX's blockwise_attention on the
+    same float64 inputs (x64 is on, but its products accumulate in fp32,
+    so fp32 rounding apart: rtol 1e-5 / atol 1e-6) and the port's plain
+    version (fp32: O_TOL), ragged Sq != Sk in both orders."""
+    for sq, sk in ((37, 21), (21, 37)):
+        rs = np.random.RandomState(sq)
+        q = rs.randn(2, sq, 3, 64)
+        k, v = (rs.randn(2, sk, 3, 64) for _ in range(2))
+        o, lse = chip_smoke.attention_fp64(*_t(q, k, v, dtype=torch.float64),
+                                           causal, 0.125)
+        assert o.dtype == lse.dtype == torch.float64
+        o_j, lse_j = jfa.blockwise_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            scale=0.125, block_size=16)
+        np.testing.assert_allclose(o.numpy(), np.asarray(o_j), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j),
+                                   rtol=1e-5, atol=1e-6)
+        o_p, lse_p = tfa.blockwise_attention(
+            *_t(q, k, v), causal=causal, scale=0.125, block_size=16)
+        np.testing.assert_allclose(o.numpy(), _np(o_p), **O_TOL)
+        np.testing.assert_allclose(lse.numpy(), _np(lse_p), **O_TOL)
 
 
 @pytest.mark.parametrize("route", ["bias", "q_offset"])

@@ -1,8 +1,11 @@
 """Carry weights from the JAX package's model into the port's.
 
 ``load_state_dict(model, state)`` takes the JAX model's ``state_dict()``
-as ``{structured_name: np.ndarray}``. Layouts are the same in both
-packages (``Linear`` is ``[in, out]``), so no array is transposed. A
+as ``{structured_name: np.ndarray}``. That dict holds the buffers too
+(the BN running statistics ``<layer>._mean`` / ``<layer>._variance``),
+and so does the port's ``state_dict``, so they load with the parameters.
+Layouts are the same in both packages (``Linear`` is ``[in, out]``,
+``Conv2D`` OIHW in either data format), so no array is transposed. A
 parameter the port shares between names (the tied MLM decoder weight)
 must arrive with equal arrays under every name, and is loaded once.
 """

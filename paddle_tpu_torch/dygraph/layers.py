@@ -52,6 +52,36 @@ class Layer(torch.nn.Module):
         return missing
 
 
+class Sequential(Layer):
+    """ref: fluid/dygraph/container.py Sequential. ``Sequential(a, b)``
+    names its sublayers "0", "1", ...; ``Sequential([("n", a), ...])``
+    or ``Sequential(("n", a), ...)`` names them."""
+
+    def __init__(self, *layers):
+        super().__init__()
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)) and \
+                layers[0] and isinstance(layers[0][0], (list, tuple)):
+            for name, layer in layers[0]:
+                self.add_sublayer(name, layer)
+        else:
+            for i, layer in enumerate(layers):
+                if isinstance(layer, tuple):
+                    self.add_sublayer(layer[0], layer[1])
+                else:
+                    self.add_sublayer(str(i), layer)
+
+    def forward(self, x):
+        for layer in self._modules.values():
+            x = layer(x)
+        return x
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
+    def __len__(self):
+        return len(self._modules)
+
+
 class LayerList(Layer):
     def __init__(self, sublayers=None):
         super().__init__()

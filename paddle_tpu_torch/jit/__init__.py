@@ -5,8 +5,12 @@ Port of the single-device ``TrainStep`` of ``paddle_tpu/jit/__init__.py``
 port runs it eagerly (no ``torch.compile``): the forward under the step's
 AMP level, ``loss.backward()``, then the optimizer's ``functional_step``
 under ``no_grad`` with the velocity held by the step, written back into
-the parameters in place. ``ParallelTrainStep``, ``DataParallelTrainStep``
-and fp32 masters (O2) are not ported yet.
+the parameters in place. The step holds the parameters only: buffers
+(BN running statistics) stay on the model, and the ``batch_norm`` op
+updates them in place during the forward, which runs in train mode (the
+reference reinstalls them after its traced step; the values agree).
+``ParallelTrainStep``, ``DataParallelTrainStep`` and fp32 masters (O2)
+are not ported yet.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Parameter initializers drawing from an explicit ``torch.Generator``.
 
 Port of ``paddle_tpu/nn/initializer.py`` (Constant, Normal,
-XavierNormal, XavierUniform). Each is a callable
+XavierNormal, XavierUniform, KaimingNormal). Each is a callable
 ``(shape, dtype) -> CPU tensor``; the values come from ``generator`` when
 one is given, else from the thread's default generator
 (``core/rng.default_generator``).
@@ -81,5 +81,20 @@ class XavierNormal(Initializer):
     def __call__(self, shape, dtype):
         fi, fo = _fan_in_out(shape)
         std = math.sqrt(2.0 / ((self.fan_in or fi) + (self.fan_out or fo)))
+        x = torch.randn(tuple(shape), generator=self._gen())
+        return (std * x).to(dtypes.convert_dtype(dtype))
+
+
+class KaimingNormal(Initializer):
+    """He normal: std sqrt(2 / fan_in), fan_in of an OIHW filter being
+    I * H * W unless given."""
+
+    def __init__(self, fan_in=None, generator=None):
+        super().__init__(generator)
+        self.fan_in = fan_in
+
+    def __call__(self, shape, dtype):
+        fi, _ = _fan_in_out(shape)
+        std = math.sqrt(2.0 / (self.fan_in or fi))
         x = torch.randn(tuple(shape), generator=self._gen())
         return (std * x).to(dtypes.convert_dtype(dtype))

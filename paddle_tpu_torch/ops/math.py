@@ -1,9 +1,10 @@
 """Math / elementwise / activation / reduction ops.
 
 Port of the op types of ``paddle_tpu/ops/math.py`` that a BERT
-pretraining step runs. Paddle's elementwise ``axis`` broadcast (y aligned
-to x starting at ``axis``) is kept. Plain torch ops: the JAX package left
-these to XLA, and the port leaves them to torch's own kernels.
+pretraining step and a ResNet training step run. Paddle's elementwise
+``axis`` broadcast (y aligned to x starting at ``axis``) is kept. Plain
+torch ops: the JAX package left these to XLA, and the port leaves them
+to torch's own kernels.
 """
 from __future__ import annotations
 
@@ -86,6 +87,18 @@ def gelu(inputs, attrs):
     approximate = "tanh" if attrs.get("approximate", False) else "none"
     return {"Out": [torch.nn.functional.gelu(_x(inputs),
                                              approximate=approximate)]}
+
+
+@register_op("relu")
+def relu(inputs, attrs):
+    return {"Out": [torch.relu(_x(inputs))]}
+
+
+@register_op("relu6")
+def relu6(inputs, attrs):
+    """clip(x, 0, threshold); no gradient at either end (lax.clamp's)."""
+    return {"Out": [torch.nn.functional.hardtanh(
+        _x(inputs), 0.0, attrs.get("threshold", 6.0))]}
 
 
 @register_op("tanh")

@@ -1,9 +1,11 @@
-"""Tensor ops: dtype cast and reshape.
+"""Tensor ops: dtype cast, reshape and flatten.
 
 Port of the op types of ``paddle_tpu/ops/tensor_ops.py`` that a BERT
-pretraining step runs.
+pretraining step and a ResNet training step run.
 """
 from __future__ import annotations
+
+import math
 
 from ..core import dtype as dtypes
 from ..core.registry import register_op
@@ -31,3 +33,16 @@ def reshape(inputs, attrs):
     if inputs.get("Shape"):
         shape = [int(s) for s in inputs["Shape"][0].tolist()]
     return {"Out": [x.reshape(_infer_reshape(x, shape))]}
+
+
+@register_op("flatten_contiguous_range", intermediate_outputs=("XShape",))
+def flatten_contiguous_range(inputs, attrs):
+    """Dims start_axis..stop_axis into one. ``XShape`` (an empty tensor
+    that carries the input shape to the reference's grad op) has no use
+    under torch autograd and is not made."""
+    x = inputs["X"][0]
+    start = attrs.get("start_axis", 1) % max(x.ndim, 1)
+    stop = attrs.get("stop_axis", -1) % max(x.ndim, 1)
+    mid = math.prod(x.shape[start:stop + 1])
+    return {"Out": [x.reshape(tuple(x.shape[:start]) + (mid,)
+                              + tuple(x.shape[stop + 1:]))]}

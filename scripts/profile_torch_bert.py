@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""Where a BERT-base O1 train step of paddle_tpu_torch spends its time on
-one CUDA card.
+"""Where a train step of paddle_tpu_torch spends its time on one CUDA
+card: BERT-base O1 or ResNet-50 O1.
 
     python3 scripts/profile_torch_bert.py [--steps 3]
+    python3 scripts/profile_torch_bert.py --model resnet50 --layout NHWC
 
-Builds the main path as chip_smoke.py does (BertForPretraining, Momentum
-1e-4 / 0.9, TrainStep amp_level="O1", batch 16, seq 128), warms up two
-steps, then traces ``--steps`` steps with torch.profiler (CPU and CUDA
-activities). Prints the step's wall time, the device's busy time (union
-of kernel and copy intervals) and idle share, device time by kernel
-family, the top kernels, and each of the port's flash kernels (ms a step,
-launches a step, us a launch). Fails when there is no card or the trace
-holds no device event.
+Builds the step as chip_smoke.py does. BERT: BertForPretraining,
+Momentum 1e-4 / 0.9, TrainStep amp_level="O1", batch 16, seq 128.
+ResNet-50: resnet50(num_classes=1000, data_format=--layout),
+cross_entropy, Momentum 0.1 / 0.9, O1, batch 256, 224 px, cudnn.benchmark
+on. Warms up two steps, then traces ``--steps`` steps with torch.profiler
+(CPU and CUDA activities). Prints the step's wall time, the device's busy
+time (union of kernel and copy intervals) and idle share, device time by
+kernel family and the top kernels; for BERT each of the port's flash
+kernels (ms a step, launches a step, us a launch); for ResNet the device
+time of layout transforms: cuDNN's nchwToNhwc / nhwcToNchw kernels and
+torch's copy kernels that are not dtype casts, split by whether the op
+that launched them had an activation-sized input (more elements than the
+largest parameter) or only weight-sized ones. A kernel that a convolution
+op launched counts as conv whatever its name. Fails when there is no card
+or the trace holds no device event.
 """
 import argparse
 import collections
+import math
 import os
 import sys
 import time
@@ -27,6 +36,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 FAMILIES = [                      # (family, substrings of the kernel name)
     ("flash K1-K3 (port)", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                             "flash_bwd_dkv_kernel")),
+    ("layout transform (cuDNN)", ("nchwToNhwc", "nhwcToNchw")),
+    ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "BatchNorm")),
+    ("pool", ("pool", "Pool")),
+    ("conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "Conv")),
     ("matmul (cuBLAS)", ("gemm", "Kernel2", "cutlass", "sm90_xmma",
                          "nvjet")),
     ("softmax / log_softmax", ("softmax",)),
@@ -36,43 +49,106 @@ FAMILIES = [                      # (family, substrings of the kernel name)
     ("copy / cast / fill", ("copy", "Memcpy", "Memset", "fill", "cast")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 ]
+TRANSFORM_KEYS = ("nchwToNhwc", "nhwcToNchw")
+CAST_OPS = ("aten::_to_copy", "aten::to")
 
 
-def _family(name):
-    for fam, keys in FAMILIES:
+def _family(name, ops=()):
+    """A kernel's family by its name; a kernel that a convolution op
+    launched (cuDNN also runs 1x1 convolutions as GEMMs) counts as conv,
+    unless it is a layout transform."""
+    for fam, keys in FAMILIES[:2]:
+        if any(k in name for k in keys):
+            return fam
+    if any("convolution" in op for op in ops):
+        return "conv (cuDNN)"
+    for fam, keys in FAMILIES[2:]:
         if any(k in name for k in keys):
             return fam
     return "other"
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=3)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_bert: no CUDA device", file=sys.stderr)
-        return 2
-    import paddle_tpu_torch as tpt
+def build_bert(dev):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import Momentum
     from paddle_tpu_torch.text.models import BertForPretraining
-    from chip_smoke import card_line, make_batch, step_fn
-    print(card_line())
-    dev = torch.device("cuda")
-    tpt.set_device(dev)
-    tpt.seed(0)
+    from chip_smoke import make_batch, step_fn
     model = BertForPretraining(dropout=0.0)
     train = TrainStep(model, step_fn, Momentum(
         learning_rate=1e-4, momentum=0.9, parameters=model.parameters()),
         amp_level="O1").ensure_state()
     gen = torch.Generator(device=dev).manual_seed(0)
-    batch = make_batch(gen, dev, 16, 128, 30522)
+    return model, train, make_batch(gen, dev, 16, 128, 30522)
+
+
+def build_resnet(dev, layout):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    from chip_smoke import RESNET, image_batch, resnet_step_fn
+    torch.backends.cudnn.benchmark = True
+    model = resnet50(num_classes=RESNET["classes"], data_format=layout)
+    train = TrainStep(model, resnet_step_fn, Momentum(
+        learning_rate=0.1, momentum=0.9, parameters=model.parameters()),
+        amp_level="O1").ensure_state()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return model, train, image_batch(gen, dev, RESNET["batch"],
+                                     RESNET["px"], layout, RESNET["classes"])
+
+
+def transforms(prof, act_numel, n):
+    """Device us a step of layout transforms, by (kind, "activation" |
+    "weight"): cuDNN's nchwToNhwc / nhwcToNchw kernels, and torch's copy
+    kernels, apart from those a dtype cast launched."""
+    out = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        size = max((math.prod(s) for s in (e.input_shapes or []) if s),
+                   default=0)
+        where = "activation" if size > act_numel else "weight"
+        cast = False
+        parent = e
+        while parent is not None:
+            cast = cast or parent.name in CAST_OPS
+            parent = parent.cpu_parent
+        for k in e.kernels:
+            if any(key in k.name for key in TRANSFORM_KEYS):
+                out["cuDNN nchwToNhwc / nhwcToNchw", where] += k.duration
+            elif "copy" in k.name and not cast:
+                out["copy kernel, no dtype cast", where] += k.duration
+            elif "copy" in k.name:
+                out["copy kernel, dtype cast", where] += k.duration
+    return {key: us / n for key, us in out.items()}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--model", choices=("bert", "resnet50"), default="bert")
+    ap.add_argument("--layout", choices=("NHWC", "NCHW"), default="NHWC")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_bert: no CUDA device", file=sys.stderr)
+        return 2
+    import paddle_tpu_torch as tpt
+    from chip_smoke import card_line
+    print(card_line())
+    dev = torch.device("cuda")
+    tpt.set_device(dev)
+    tpt.seed(0)
+    resnet = args.model == "resnet50"
+    model, train, batch = (build_resnet(dev, args.layout) if resnet
+                           else build_bert(dev))
+    print(f"[profile] {args.model}"
+          + (f" {args.layout}, cudnn.benchmark on" if resnet else ""))
     for _ in range(2):
         train(*batch)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts,
+                                record_shapes=resnet) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             train(*batch)
@@ -95,12 +171,17 @@ def main():
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     n = args.steps
+    launched_by = collections.defaultdict(set)   # kernel -> its ops
+    for e in prof.events():
+        for k in (e.kernels if e.device_type ==
+                  torch.autograd.DeviceType.CPU else ()):
+            launched_by[k.name].add(e.name)
     by_family = collections.Counter()
     by_name = collections.Counter()
     counts = collections.Counter()
     for e in dev_events:
         dur = e.time_range.end - e.time_range.start
-        by_family[_family(e.name)] += dur
+        by_family[_family(e.name, launched_by[e.name])] += dur
         by_name[e.name] += dur
         counts[e.name] += 1
     total = sum(by_family.values())
@@ -109,9 +190,9 @@ def main():
           f"{1 - busy / wall_us:.3f}  device events "
           f"{len(dev_events) / n:.0f}/step")
     for fam, us in by_family.most_common():
-        print(f"[profile] {fam:<24} {us / n / 1e3:8.3f} ms/step  "
+        print(f"[profile] {fam:<26} {us / n / 1e3:8.3f} ms/step  "
               f"{us / total:6.1%} of device time")
-    for name, us in by_name.most_common(12):
+    for name, us in by_name.most_common(15):
         print(f"[profile]   {us / n / 1e3:8.3f} ms/step  x{counts[name] // n:<4}"
               f" {name[:110]}")
     for name, us in sorted(by_name.items()):
@@ -119,6 +200,17 @@ def main():
             print(f"[profile] port kernel {us / n / 1e3:.3f} ms/step  "
                   f"x{counts[name] // n}  {us / counts[name]:.1f} us a launch"
                   f"  {name.split('::')[-1].split('(')[0]}")
+    if resnet:
+        act_numel = max(p.numel() for p in model.parameters())
+        found = transforms(prof, act_numel, n)
+        print(f"[profile] layout transforms (activation-sized: an input of "
+              f"more than {act_numel} elements, the largest parameter):")
+        for kind in ("cuDNN nchwToNhwc / nhwcToNchw",
+                     "copy kernel, no dtype cast", "copy kernel, dtype cast"):
+            act, wgt = (found.get((kind, w), 0.0) / 1e3
+                        for w in ("activation", "weight"))
+            print(f"[profile]   {kind:<32} activation-sized {act:.3f} "
+                  f"ms/step  weight-sized {wgt:.3f} ms/step")
     return 0
 
 

@@ -1,9 +1,10 @@
-"""The port's op registry covers every op type one BERT step runs.
+"""The port's op registry covers every op type one BERT step and one
+ResNet step run.
 
 Wraps the JAX package's ``OpInfoMap.get`` (every eager op and the
 optimizer's update are looked up there) during one JAX ``TrainStep`` of
-BERT-tiny at O1, as bench.py runs it, and fails if the port's registry
-lacks any type it saw. Indexing (``hidden[:, 0]``) goes through
+BERT-tiny and of resnet18 at O1, as bench.py runs them, and fails if the
+port's registry lacks any type it saw. Indexing (``hidden[:, 0]``) goes through
 ``trace_with_fn`` in the reference, not the registry, and is plain torch
 indexing in the port.
 """
@@ -15,7 +16,9 @@ import torch
 from paddle_tpu.core.registry import OpInfoMap as JaxOpInfoMap
 from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.optimizer import Momentum as JaxMomentum
+from paddle_tpu.nn import functional as JaxF
 from paddle_tpu.text.models import BertForPretraining as JaxBert
+from paddle_tpu.vision.models import resnet18 as jax_resnet18
 import paddle_tpu as jpt
 
 import paddle_tpu_torch  # noqa: F401  (registers the port's ops)
@@ -58,6 +61,33 @@ def test_port_registers_every_op_type_of_a_bert_step(monkeypatch):
     assert not missing, f"port lacks op types {missing}"
 
 
+@pytest.mark.parametrize("layout", ["NHWC", "NCHW"])
+def test_port_registers_every_op_type_of_a_resnet_step(monkeypatch, layout):
+    seen = set()
+    real_get = JaxOpInfoMap.get
+
+    def spy(self, op_type):
+        seen.add(op_type)
+        return real_get(self, op_type)
+
+    monkeypatch.setattr(JaxOpInfoMap, "get", spy)
+    jpt.seed(0)
+    model = jax_resnet18(num_classes=10, data_format=layout)
+    opt = JaxMomentum(learning_rate=0.1, momentum=0.9,
+                      parameters=model.parameters())
+    step = JaxTrainStep(model, lambda m, x, y: JaxF.cross_entropy(m(x), y),
+                        opt, amp_level="O1")
+    rs = np.random.RandomState(0)
+    shape = (2, 32, 32, 3) if layout == "NHWC" else (2, 3, 32, 32)
+    x = rs.rand(*shape).astype(np.float32)
+    y = rs.randint(0, 10, (2, 1)).astype(np.int32)
+    assert np.isfinite(float(step(x, y).numpy()))
+    assert {"conv2d", "batch_norm", "pool2d", "relu", "momentum",
+            "flatten_contiguous_range", "softmax_with_cross_entropy"} <= seen
+    missing = sorted(t for t in seen if not OpInfoMap.instance().has(t))
+    assert not missing, f"port lacks op types {missing}"
+
+
 # ---------------------------------------------------------------------------
 # op by op: the same numpy inputs through both registries, every output
 # slot the port computes, at rtol / atol 1e-5 (fp32 math in two libraries
@@ -65,6 +95,18 @@ def test_port_registers_every_op_type_of_a_bert_step(monkeypatch):
 # ---------------------------------------------------------------------------
 def _f(*shape, seed=0):
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def _bn_inputs(*shape, seed=3):
+    """X of ``shape`` (channels last for NHWC), per-channel scale, bias,
+    running mean and variance (positive)."""
+    c = shape[1] if shape[1] == 3 else shape[-1]
+    rs = np.random.RandomState(seed)
+    return {"X": [rs.randn(*shape).astype(np.float32) * 2.0 + 0.5],
+            "Scale": [rs.randn(c).astype(np.float32)],
+            "Bias": [rs.randn(c).astype(np.float32)],
+            "Mean": [rs.randn(c).astype(np.float32)],
+            "Variance": [rs.rand(c).astype(np.float32) + 0.5]}
 
 
 _IDS = np.random.RandomState(5).randint(0, 10, (3, 4)).astype(np.int32)
@@ -115,6 +157,95 @@ OP_CASES = {
         {"Logits": [_f(4, 11)],
          "Label": [np.abs(_f(4, 11, seed=1)) / 11.0]},
         {"soft_label": True}),
+    # ResNet's ops: conv, pool, batch norm, activations, flatten
+    "conv2d": ({"Input": [_f(2, 3, 9, 9)], "Filter": [_f(4, 3, 3, 3, seed=1)]},
+               {"strides": [1, 1], "paddings": [1, 1]}),
+    "conv2d[NHWC, stride 2, groups 2]": (
+        {"Input": [_f(2, 9, 8, 4)], "Filter": [_f(6, 2, 3, 3, seed=1)]},
+        {"strides": [2, 2], "paddings": [1, 1], "groups": 2,
+         "data_format": "NHWC"}),
+    "conv2d[4-value padding, dilation]": (
+        {"Input": [_f(2, 3, 9, 8)], "Filter": [_f(4, 3, 3, 2, seed=1)]},
+        {"strides": [1, 2], "paddings": [0, 2, 1, 0], "dilations": [2, 1]}),
+    "conv2d[SAME stride 2]": (
+        {"Input": [_f(2, 3, 10, 9)], "Filter": [_f(4, 3, 4, 3, seed=1)]},
+        {"strides": [2, 2], "padding_algorithm": "SAME"}),
+    "conv2d[SAME stride 2, NHWC]": (
+        {"Input": [_f(2, 10, 9, 3)], "Filter": [_f(4, 3, 4, 3, seed=1)]},
+        {"strides": [2, 2], "padding_algorithm": "SAME",
+         "data_format": "NHWC"}),
+    "conv2d[VALID stride 3]": (
+        {"Input": [_f(2, 3, 10, 9)], "Filter": [_f(4, 3, 3, 3, seed=1)]},
+        {"strides": [3, 3], "paddings": [5, 5], "padding_algorithm": "VALID"}),
+    "conv2d[f16 x, f32 filter: promotes]": (
+        {"Input": [_f(2, 3, 9, 9).astype(np.float16)],
+         "Filter": [_f(4, 3, 3, 3, seed=1)]}, {"paddings": [1, 1]}),
+    "depthwise_conv2d": ({"Input": [_f(2, 4, 8, 8)],
+                          "Filter": [_f(4, 1, 3, 3, seed=1)]},
+                         {"strides": [2, 2], "paddings": [1, 1]}),
+    "depthwise_conv2d[NHWC]": ({"Input": [_f(2, 8, 8, 4)],
+                                "Filter": [_f(4, 1, 3, 3, seed=1)]},
+                               {"paddings": [1, 1], "data_format": "NHWC"}),
+    "pool2d": ({"X": [_f(2, 3, 9, 9)]},
+               {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+                "paddings": [1, 1]}),
+    "pool2d[max NHWC]": ({"X": [_f(2, 9, 9, 3)]},
+                         {"pooling_type": "max", "ksize": [3, 3],
+                          "strides": [2, 2], "paddings": [1, 1],
+                          "data_format": "NHWC"}),
+    "pool2d[max padding past half the window]": (
+        {"X": [_f(2, 3, 7, 7)]}, {"pooling_type": "max", "ksize": [2, 2],
+                                  "strides": [2, 2], "paddings": [2, 2]}),
+    "pool2d[max ceil_mode, last window in the padding]": (
+        {"X": [_f(2, 3, 7, 7)]}, {"pooling_type": "max", "ksize": [2, 2],
+                                  "strides": [2, 2], "paddings": [1, 1],
+                                  "ceil_mode": True}),
+    "pool2d[avg exclusive ceil_mode]": (
+        {"X": [_f(2, 3, 8, 8)]}, {"pooling_type": "avg", "ksize": [3, 3],
+                                  "strides": [2, 2], "paddings": [1, 1],
+                                  "ceil_mode": True, "exclusive": True}),
+    "pool2d[avg exclusive ceil_mode NHWC, torch's windows]": (
+        {"X": [_f(2, 9, 9, 3)]}, {"pooling_type": "avg", "ksize": [3, 3],
+                                  "strides": [2, 2], "paddings": [1, 1],
+                                  "ceil_mode": True, "exclusive": True,
+                                  "data_format": "NHWC"}),
+    "pool2d[avg inclusive padding]": (
+        {"X": [_f(2, 3, 8, 8)]}, {"pooling_type": "avg", "ksize": [3, 3],
+                                  "strides": [2, 2], "paddings": [1, 1],
+                                  "exclusive": False}),
+    "pool2d[avg inclusive ceil_mode, last window in the padding]": (
+        {"X": [_f(2, 3, 7, 7)]}, {"pooling_type": "avg", "ksize": [2, 2],
+                                  "strides": [2, 2], "paddings": [1, 1],
+                                  "ceil_mode": True, "exclusive": False}),
+    "pool2d[global max]": ({"X": [_f(2, 3, 5, 6)]},
+                           {"pooling_type": "max", "global_pooling": True}),
+    "pool2d[global avg NHWC]": ({"X": [_f(2, 5, 6, 3)]},
+                                {"pooling_type": "avg", "ksize": [-1, -1],
+                                 "data_format": "NHWC"}),
+    "pool2d[adaptive avg]": ({"X": [_f(2, 3, 8, 6)]},
+                             {"pooling_type": "avg", "ksize": [2, 3],
+                              "adaptive": True}),
+    "pool2d[adaptive max NHWC]": ({"X": [_f(2, 8, 6, 3)]},
+                                  {"pooling_type": "max", "ksize": [4, 1],
+                                   "adaptive": True, "data_format": "NHWC"}),
+    "batch_norm": (_bn_inputs(2, 3, 5, 4), {"momentum": 0.9,
+                                            "epsilon": 1e-5}),
+    "batch_norm[NHWC]": (_bn_inputs(2, 5, 4, 3),
+                         {"momentum": 0.8, "epsilon": 1e-3,
+                          "data_layout": "NHWC"}),
+    "batch_norm[test]": (_bn_inputs(2, 3, 5, 4), {"is_test": True}),
+    "batch_norm[test NHWC]": (_bn_inputs(2, 5, 4, 3),
+                              {"is_test": True, "data_layout": "NHWC"}),
+    "batch_norm[use_global_stats]": (_bn_inputs(2, 3, 5, 4),
+                                     {"use_global_stats": True}),
+    "sync_batch_norm": (_bn_inputs(2, 3, 5, 4), {"momentum": 0.9}),
+    "relu": ({"X": [_f(4, 6)]}, {}),
+    "relu6": ({"X": [_f(4, 6) * 5.0]}, {}),
+    "relu6[threshold]": ({"X": [_f(4, 6) * 5.0]}, {"threshold": 2.0}),
+    "flatten_contiguous_range": ({"X": [_f(2, 3, 4, 5)]},
+                                 {"start_axis": 1, "stop_axis": -1}),
+    "flatten_contiguous_range[middle]": ({"X": [_f(2, 3, 4, 5)]},
+                                         {"start_axis": 1, "stop_axis": 2}),
 }
 
 
@@ -137,6 +268,35 @@ def test_op_matches_reference(case):
         g = got[slot][0]
         assert tuple(g.shape) == w.shape, slot
         np.testing.assert_allclose(g.float().numpy(), w, rtol=1e-5,
+                                   atol=1e-5, err_msg=slot)
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_batch_norm_takes_bf16_x_with_fp32_scale(layout):
+    """Under O1 BN gets the bf16 output of a bf16 conv with fp32 scale,
+    bias and running stats: statistics in fp32, Y in bf16 (one bf16
+    rounding of the same value: rtol 2**-7), the stat slots fp32."""
+    import jax.numpy as jnp
+    inputs = _bn_inputs(2, 5, 4, 3) if layout == "NHWC" else \
+        _bn_inputs(2, 3, 5, 4)
+    x16 = torch.from_numpy(inputs["X"][0]).to(torch.bfloat16)
+    attrs = {"momentum": 0.9, "epsilon": 1e-5, "data_layout": layout}
+    want = JaxOpInfoMap.instance().get("batch_norm").compute(
+        dict({s: [jnp.asarray(v[0])] for s, v in inputs.items()},
+             X=[jnp.asarray(x16.float().numpy()).astype(jnp.bfloat16)]),
+        dict(attrs))
+    got = OpInfoMap.instance().get("batch_norm").compute(
+        dict({s: [torch.from_numpy(v[0])] for s, v in inputs.items()},
+             X=[x16]), dict(attrs))
+    assert got["Y"][0].dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got["Y"][0].float().numpy(),
+        np.asarray(want["Y"][0].astype(jnp.float32)), rtol=2 ** -7,
+        atol=2 ** -7)
+    for slot in ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+        assert got[slot][0].dtype == torch.float32, slot
+        np.testing.assert_allclose(got[slot][0].numpy(),
+                                   np.asarray(want[slot][0]), rtol=1e-5,
                                    atol=1e-5, err_msg=slot)
 
 

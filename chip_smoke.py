@@ -42,9 +42,29 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      peak memory. It runs no kernel of the port's own: XLA compiled the
      JAX package's conv, batch norm and pool ops, and the port leaves
      them to cuDNN and torch.
+  8. detection_ops: every op of the detection module (yolo_box,
+     multiclass_nms, matrix_nms, the prior generators, box_coder,
+     iou_similarity, box_clip, roi_align, bipartite_match, yolov3_loss
+     with its gradient) and leaky_relu, concat, transpose2 and
+     interpolate on the card against the CPU from the same inputs;
+     multiclass_nms exact, also on saturated ties and at YOLOv3-416's
+     shape (10,647 boxes, 80 classes, nms_top_k 400);
+  9. yolov3_tiny: YOLOv3 at full depth, 4 classes, 64 px, batch 2, on the
+     card against the CPU, with the initial and with calibrated BN
+     statistics: heads, boxes, scores and detections agree;
+ 10. yolov3: the third model of the main path, bench.py's YOLOv3-416
+     inference leg (yolov3(num_classes=80), eval(), batch 1, 416 px,
+     fp32, predict = network + yolo_box decode + multiclass NMS), with
+     the bench's initial BN statistics and calibrated ones: latency over
+     30 predicts, device time, launches and host syncs a predict, peak
+     memory, NmsedNum, conv FLOPs and their bound, one timing with
+     cuDNN's TF32 on; the initial statistics' detections equal on the
+     card and the CPU. No kernel of the port's own: cuDNN and torch's.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
+import collections
+import contextlib
 import ctypes
 import functools
 import json
@@ -55,6 +75,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 PEAK_BYTES_S = 3.35e12                       # H100 SXM HBM3
@@ -669,11 +690,9 @@ def phase_resnet_tiny(tpt, dev):
               f"CPU: {bad}")
 
 
-def conv_flops(model, x):
-    """Operations of one training step's convolutions for the batch x:
-    forward, filter gradient, and input gradient for every conv but the
-    first (the images need none), 2 per multiply-add, from the shapes a
-    one-image eval forward gives (so no BN statistic moves)."""
+def conv_macs(model, x):
+    """Multiply-adds of each convolution of one eval forward of x, in call
+    order; leaves the model in eval()."""
     from paddle_tpu_torch.nn import Conv2D
     macs, hooks = [], []
     for m in model.modules():
@@ -682,12 +701,54 @@ def conv_flops(model, x):
                 lambda mod, inp, out: macs.append(
                     out.numel() * mod.weight[0].numel())))
     model.eval()
-    with torch.no_grad():
-        model(x[:1])
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs
+
+
+def conv_flops(model, x):
+    """Operations of one training step's convolutions for the batch x:
+    forward, filter gradient, and input gradient for every conv but the
+    first (the images need none), 2 per multiply-add, from the shapes a
+    one-image eval forward gives (so no BN statistic moves)."""
+    macs = conv_macs(model, x[:1])
     model.train()
-    for h in hooks:
-        h.remove()
     return 2 * x.shape[0] * (3 * sum(macs) - macs[0])
+
+
+def calibrated_state(model, x):
+    """The model's state as {name: numpy array}, with every BN layer's
+    running mean and variance set to the batch statistics of its input
+    (mean and biased variance over N, H, W) on the batch x, BN by BN in
+    the order the forward reaches them, so each sees the ones before it
+    calibrated. At random weights with the initial statistics (mean 0,
+    variance 1) YOLOv3's activations grow through its 75 convolutions
+    until the heads saturate and every kept score is 1.0; calibrated,
+    the heads give graded scores and NMS real suppressions to make. A
+    test and chip helper, not a feature of the port: loaded into the
+    JAX model (set_state_dict) and the port (load_state_dict) alike."""
+    from paddle_tpu_torch.nn import BatchNorm2D
+
+    def take_stats(bn, args):
+        v = args[0]
+        bn._mean.copy_(v.mean(dim=(0, 2, 3)))
+        bn._variance.copy_(v.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(take_stats)
+             for m in model.modules() if isinstance(m, BatchNorm2D)]
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in model.state_dict().items()}
 
 
 def _resnet_run(tpt, dev, layout, batches, warmup, steps):
@@ -762,6 +823,518 @@ def phase_resnet(tpt, dev):
           "NHWC and NCHW first losses disagree beyond bf16 noise")
 
 
+# ------------------------------------------------------------------- YOLOv3
+YOLO_NMS = dict(background_label=-1, score_threshold=0.005,
+                nms_threshold=0.45, nms_top_k=400, keep_top_k=100,
+                normalized=False)                # YOLOv3.predict's attrs
+YOLO_TINY = dict(num_classes=4, keep_top_k=20, nms_top_k=50)
+# card against CPU, fp32 (TF32 off), the tiny model at 64 px, batch 2, as
+# tests/test_torch_yolov3.py holds the port to the JAX package: heads by
+# the error over the head's largest magnitude; decoded boxes (pixels)
+# and scores, and predict's rows, absolutely; counts and labels exact
+YOLO_TINY_TOL = {"head": 1e-4, "box": 5e-2, "score": 1e-3, "det": 1e-2}
+YOLO_416 = dict(px=416, classes=80, iters=30, calib=4)
+EXACT = (0.0, 0.0)
+# float outputs through exp / sigmoid / log or summed in another order
+ULPS = (1e-5, 1e-6)
+BOX_PX = (1e-5, 1e-3)
+
+
+@contextlib.contextmanager
+def op_ranges():
+    """While active, every registered op's compute, and
+    ``nn.functional.interpolate`` (not an op), runs inside a
+    ``torch.profiler.record_function`` range "op:<type>", so a trace can
+    give each kernel the op that launched it. Profiling only."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.nn import functional as F
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function("op:" + name):
+                return fn(*args, **kwargs)
+        return run
+
+    opdefs = list(OpInfoMap.instance()._ops.values())
+    saved = [d.compute for d in opdefs]
+    interpolate = F.interpolate
+    for d in opdefs:
+        d.compute = ranged(d.type, d.compute)
+    F.interpolate = ranged("interpolate", interpolate)
+    try:
+        yield
+    finally:
+        for d, fn in zip(opdefs, saved):
+            d.compute = fn
+        F.interpolate = interpolate
+
+
+def device_busy_us(dev_events):
+    """The union of the device events' intervals, in us."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in dev_events)
+    if not spans:
+        return 0.0
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s
+
+
+def kernel_op(event):
+    """The "op:<type>" range (op_ranges) around a CPU event, or None."""
+    while event is not None:
+        if event.name.startswith("op:"):
+            return event.name[3:]
+        event = event.cpu_parent
+    return None
+
+
+def profile_call(fn):
+    """torch.profiler over one call of fn (ops ranged): its device busy
+    time, wall time, device time by launching op, kernels run, CUDA
+    runtime calls by name, kernel launches and host syncs
+    (cudaStreamSynchronize: a device-to-host read waits for the stream;
+    the closing cudaDeviceSynchronize is this function's own)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with op_ranges(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cpu_type = torch.autograd.DeviceType.CPU
+    events = prof.events()
+    # op_ranges' ranges also appear on the device timeline, spanning
+    # their kernels and the gaps between them: not device work
+    dev_events = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA and
+                  not e.name.startswith("op:")]
+    runtime = collections.Counter(e.name for e in events
+                                  if e.device_type == cpu_type and
+                                  e.name.startswith("cu"))
+    by_op = collections.Counter()
+    for e in events:
+        if e.device_type == cpu_type:
+            for k in e.kernels:
+                by_op[kernel_op(e) or "other"] += k.duration
+    by_op["(not linked to an op)"] = sum(
+        e.time_range.end - e.time_range.start for e in dev_events) - sum(
+        by_op.values())
+    return dict(busy_ms=device_busy_us(dev_events) / 1e3, wall_ms=wall_ms,
+                by_op_ms={k: v / 1e3 for k, v in by_op.items()},
+                device_events=len(dev_events), runtime=runtime,
+                launches=sum(n for name, n in runtime.items()
+                             if "LaunchKernel" in name),
+                syncs=runtime.get("cudaStreamSynchronize", 0))
+
+
+def _run_op(op_type, inputs, attrs, dev, grad=None):
+    """The registered op on ``dev`` from CPU inputs; with ``grad`` (a
+    slot), also d(sum of the first output)/d(that input)."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    ins = {s: [t.to(dev) for t in v] for s, v in inputs.items()}
+    if grad:
+        ins[grad] = [t.requires_grad_() for t in ins[grad]]
+    outs = OpInfoMap.instance().get(op_type).compute(ins, attrs)
+    if grad:
+        first = next(iter(outs.values()))[0]
+        outs = dict(outs, **{"d" + grad: list(torch.autograd.grad(
+            first.sum(), ins[grad]))})
+    return {s: [t.detach().cpu() for t in v] for s, v in outs.items()}
+
+
+def card_vs_cpu(op_type, inputs, attrs, dev, tol=EXACT, grad=None,
+                label=""):
+    """The op on the card against the op on the CPU, same inputs: integer
+    outputs equal, float ones within tol ((rtol, atol), or a dict of
+    them by slot); returns the CPU outputs."""
+    card = _run_op(op_type, inputs, attrs, dev, grad)
+    cpu = _run_op(op_type, inputs, attrs, "cpu", grad)
+    print(f"[detection_ops] {op_type} {label}".rstrip())
+    for slot, outs in cpu.items():
+        for want, got in zip(outs, card[slot]):
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{op_type}.{slot}: {got.shape} {got.dtype} on the card, "
+                  f"{want.shape} {want.dtype} on the CPU")
+            if want.numel() == 0:
+                print(f"    {slot:<6} {tuple(want.shape)} empty on both")
+            elif want.is_floating_point():
+                rtol, atol = tol.get(slot, EXACT) if isinstance(
+                    tol, dict) else tol
+                err_of(got, want, rtol, atol, slot)
+            else:
+                same = torch.equal(got, want)
+                print(f"    {slot:<6} {tuple(want.shape)} "
+                      f"{'equal' if same else 'DIFFER'}")
+                check(same, f"{op_type}.{slot} differs on the card")
+    return cpu
+
+
+def _yolo_heads(gen, scale):
+    """Random [1, 255, h, h] logits for YOLOv3-416's three heads (strides
+    32, 16, 8) and each head's yolo_box attrs."""
+    from paddle_tpu_torch.vision.detection_models import (_ANCHORS,
+                                                          _ANCHOR_MASKS)
+    out = []
+    for i, (h, down) in enumerate(((13, 32), (26, 16), (52, 8))):
+        x = torch.randn((1, 3 * 85, h, h), generator=gen) * scale
+        out.append((x, dict(anchors=[_ANCHORS[2 * a + o]
+                                     for a in _ANCHOR_MASKS[i]
+                                     for o in (0, 1)],
+                            class_num=80, conf_thresh=0.005,
+                            downsample_ratio=down, clip_bbox=True,
+                            scale_x_y=1.0)))
+    return out
+
+
+def saturated_nms_inputs(rs, n, m, c):
+    """multiclass_nms inputs like those of bench.py's seed-0 YOLOv3 (BN
+    statistics as initialised), from the numpy RandomState rs: boxes
+    [n, m, 4] drawn from a few clipped to the image edges, so many are
+    identical and some inverted (y0 = 128 > y1 = 127), and scores
+    [n, c, m] of exactly 1.0, 0.5 or 0. Every kept row then scores 1.0,
+    and tie order alone decides the output."""
+    edges = np.array([[0, 0, 127, 127], [96, 128, 96, 127], [0, 0, 127, 64],
+                      [32, 0, 127, 127], [0, 40, 60, 127]], np.float32)
+    boxes = edges[rs.randint(0, len(edges), (n, m))]
+    scores = rs.choice(np.array([0.0, 1.0, 1.0, 1.0, 0.5], np.float32),
+                       (n, c, m))
+    return torch.from_numpy(boxes), torch.from_numpy(scores)
+
+
+def phase_detection_ops(dev):
+    """Every op of the detection module, and the ops YOLOv3 adds, on the
+    card against the same op on the CPU from the same inputs (TF32 off).
+    multiclass_nms exact (Index, NmsedNum and rows) on random boxes, on
+    saturated ties, and at YOLOv3-416's shape: M = 10,647 boxes from the
+    three heads' yolo_box, 80 classes, nms_top_k 400."""
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator().manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen)
+
+    def boxes(*lead, extent=100.0, size=30.0):
+        c = rand(*lead, 2) * extent
+        wh = rand(*lead, 2) * size + 1.0
+        return torch.cat([c - wh / 2, c + wh / 2], -1)
+
+    card_vs_cpu("leaky_relu", {"X": [randn(4, 64, 52, 52)]}, {"alpha": 0.1},
+                dev)
+    card_vs_cpu("concat", {"X": [randn(1, 256, 26, 26),
+                                 randn(1, 512, 26, 26)]}, {"axis": 1}, dev)
+    card_vs_cpu("transpose2", {"X": [rand(1, 10647, 80)]},
+                {"axis": [0, 2, 1]}, dev)
+    x = randn(1, 256, 13, 13)
+    for mode, size, tol in (("nearest", None, EXACT),
+                            ("nearest", (29, 20), EXACT),
+                            ("bilinear", (20, 9), ULPS),
+                            ("bicubic", (26, 17), ULPS)):
+        sf = 2 if size is None else None
+        got = F.interpolate(x.to(dev), size, sf, mode).cpu()
+        print(f"[detection_ops] interpolate {mode} to "
+              f"{tuple(got.shape[2:])}")
+        err_of(got, F.interpolate(x, size, sf, mode), *tol, "Out")
+
+    decoded = {}
+    for name, scale in (("random", 2.0), ("saturated", 4e4)):
+        outs = [card_vs_cpu("yolo_box", {"X": [hx], "ImgSize": [
+            torch.tensor([[416, 416]], dtype=torch.int32)]}, attrs, dev,
+            {"Boxes": BOX_PX, "Scores": ULPS},
+            label=f"{name} {tuple(hx.shape)}")
+                for hx, attrs in _yolo_heads(gen, scale)]
+        decoded[name] = (torch.cat([o["Boxes"][0] for o in outs], 1),
+                         torch.cat([o["Scores"][0] for o in outs], 1))
+    for name, (bx, sc) in decoded.items():
+        cpu = card_vs_cpu("multiclass_nms", {"BBoxes": [bx], "Scores": [
+            sc.transpose(1, 2).contiguous()]}, YOLO_NMS, dev,
+            label=f"YOLOv3-416 {name}: M {bx.shape[1]}, 80 classes, "
+            f"nms_top_k 400")
+        print(f"    NmsedNum {cpu['NmsedNum'][0].tolist()}")
+    sat_b, sat_s = saturated_nms_inputs(np.random.RandomState(12), 2,
+                                        400, 12)
+    for label, bx, sc, attrs in (
+            ("random", boxes(2, 300), rand(2, 8, 300),
+             dict(YOLO_NMS, nms_top_k=100, keep_top_k=50)),
+            ("saturated ties", sat_b, sat_s,
+             dict(YOLO_NMS, nms_top_k=100)),
+            ("nms_eta 0.9", boxes(2, 120, extent=1.0, size=0.5),
+             rand(2, 4, 120), dict(background_label=1, score_threshold=0.1,
+                                   nms_threshold=0.7, nms_top_k=60,
+                                   keep_top_k=30, nms_eta=0.9))):
+        card_vs_cpu("multiclass_nms", {"BBoxes": [bx], "Scores": [sc]},
+                    attrs, dev, label=label)
+    card_vs_cpu("matrix_nms", {"BBoxes": [boxes(2, 40, extent=1.0, size=0.3)],
+                               "Scores": [rand(2, 3, 40)]},
+                dict(background_label=0, score_threshold=0.1,
+                     post_threshold=0.05, nms_top_k=30, keep_top_k=25,
+                     use_gaussian=False, normalized=True), dev, ULPS)
+    feat, image = torch.zeros(1, 8, 13, 13), torch.zeros(1, 3, 416, 416)
+    card_vs_cpu("prior_box", {"Input": [feat], "Image": [image]},
+                dict(min_sizes=[30.0, 60.0], max_sizes=[60.0, 111.0],
+                     aspect_ratios=[2.0, 3.0], flip=True, clip=True), dev)
+    card_vs_cpu("anchor_generator", {"Input": [feat]},
+                dict(anchor_sizes=[32.0, 64.0, 128.0],
+                     aspect_ratios=[0.5, 1.0, 2.0], stride=[16.0, 16.0]),
+                dev)
+    card_vs_cpu("density_prior_box", {"Input": [feat], "Image": [image]},
+                dict(fixed_sizes=[32.0, 64.0], fixed_ratios=[1.0, 2.0],
+                     densities=[2, 1], clip=True), dev)
+    prior, target = boxes(50, extent=1.0, size=0.2), boxes(20, extent=1.0,
+                                                           size=0.2)
+    enc = card_vs_cpu("box_coder", {"PriorBox": [prior],
+                                    "TargetBox": [target]},
+                      dict(code_type="encode_center_size",
+                           variance=[0.1, 0.1, 0.2, 0.2]), dev, ULPS,
+                      label="encode")
+    card_vs_cpu("box_coder", {"PriorBox": [prior], "TargetBox": enc[
+        "OutputBox"]}, dict(code_type="decode_center_size",
+                            variance=[0.1, 0.1, 0.2, 0.2]), dev, ULPS,
+                label="decode")
+    card_vs_cpu("iou_similarity", {"X": [boxes(300)], "Y": [boxes(200)]},
+                dict(box_normalized=False), dev)
+    card_vs_cpu("box_clip", {"Input": [randn(2, 50, 4, scale=300.0)],
+                             "ImInfo": [torch.tensor([[416.0, 416.0, 1.0],
+                                                      [600.0, 800.0, 2.0]])]},
+                {}, dev)
+    rois = boxes(20, extent=24.0, size=10.0)
+    card_vs_cpu("roi_align", {"X": [randn(2, 16, 26, 26)], "ROIs": [rois],
+                              "RoisNum": [torch.tensor([12, 8],
+                                                       dtype=torch.int32)]},
+                dict(pooled_height=7, pooled_width=7, spatial_scale=1.0,
+                     sampling_ratio=2), dev, ULPS)
+    card_vs_cpu("bipartite_match", {"DistMat": [rand(8, 20)]},
+                dict(match_type="per_prediction", dist_threshold=0.5), dev)
+    gt = torch.cat([rand(2, 6, 2) * 0.5 + 0.25, rand(2, 6, 2) * 0.3 + 0.05],
+                   -1)
+    card_vs_cpu("yolov3_loss", {
+        "X": [randn(2, 3 * 85, 13, 13, scale=0.5)], "GTBox": [gt],
+        "GTLabel": [torch.randint(0, 80, (2, 6), generator=gen)]},
+        dict(class_num=80, anchors=[10, 13, 16, 30, 33, 23, 30, 61, 62, 45,
+                                    59, 119, 116, 90, 156, 198, 373, 326],
+             anchor_mask=[6, 7, 8], downsample_ratio=32, ignore_thresh=0.7),
+        dev, {"Loss": (1e-5, 0.0), "dX": ULPS}, grad="X",
+        label="loss and d(loss)/dX")
+
+
+def _yolo_outputs(model, x, size):
+    from paddle_tpu_torch.dygraph import no_grad
+    with no_grad():
+        heads = model(x)
+        boxes, scores = model.decode(heads, size)
+        dets, num = model.predict(x, size)
+    return ([h.cpu() for h in heads], boxes.cpu(), scores.cpu(), dets.cpu(),
+            num.cpu())
+
+
+def compare_yolo(got, want, tol, what):
+    """Card outputs of _yolo_outputs against CPU ones; returns what
+    disagrees beyond tol."""
+    head = max(((g - w).abs().max() / w.abs().max()).item()
+               for g, w in zip(got[0], want[0]))
+    errs = {"head": head}
+    for i, key in ((1, "box"), (2, "score"), (3, "det")):
+        errs[key] = (got[i] - want[i]).abs().max().item()
+    same = {"counts": torch.equal(got[4], want[4]),
+            "labels": torch.equal(got[3][..., 0], want[3][..., 0])}
+    print(f"[{what}] heads {head:.3e} of the largest (bound {tol['head']:g}); "
+          f"boxes {errs['box']:.3e} px, scores {errs['score']:.3e}, dets "
+          f"{errs['det']:.3e} (bounds {tol['box']:g}, {tol['score']:g}, "
+          f"{tol['det']:g}); NmsedNum card {got[4].tolist()} cpu "
+          f"{want[4].tolist()}; labels "
+          f"{'equal' if same['labels'] else 'DIFFER'}")
+    return [k for k, e in errs.items() if not e <= tol[k]] + \
+        [k for k, ok in same.items() if not ok]
+
+
+def phase_yolov3_tiny(tpt, dev):
+    """YOLOv3 at full depth, 4 classes, 64 px, batch 2 (the model of
+    tests/test_yolov3.py) on the card against the CPU from the same
+    weights: with its initial BN statistics (saturated heads, all kept
+    scores 1.0, so tie order decides) and calibrated ones."""
+    from paddle_tpu_torch.convert import load_state_dict
+    from paddle_tpu_torch.vision import yolov3
+    tpt.set_device("cpu")
+    tpt.seed(5)
+    cpu_model = yolov3(**YOLO_TINY)
+    gen = torch.Generator().manual_seed(6)
+    calib = torch.rand((8, 3, 64, 64), generator=gen)
+    x = torch.rand((2, 3, 64, 64), generator=gen)
+    size = torch.full((2, 2), 64, dtype=torch.int32)
+    states = {"bench": {k: v.numpy().copy() for k, v in
+                        cpu_model.state_dict().items()}}
+    states["calibrated"] = calibrated_state(cpu_model, calib)
+    tpt.set_device(dev)
+    card_model = yolov3(**YOLO_TINY).eval()
+    bad = []
+    for name, state in states.items():
+        want = _yolo_outputs(load_state_dict(cpu_model, state), x, size)
+        got = _yolo_outputs(load_state_dict(card_model, state), x.to(dev),
+                            size.to(dev))
+        bad += [f"{name} {k}" for k in compare_yolo(
+            got, want, YOLO_TINY_TOL, f"yolov3_tiny {name}")]
+        if name == "bench":
+            valid = got[3][..., 0] >= 0
+            print(f"[yolov3_tiny] bench: kept scores "
+                  f"{sorted(set(got[3][valid][:, 1].tolist()))}")
+    check(not bad, f"tiny YOLOv3 on the card disagrees with the CPU: {bad}")
+
+
+def _yolo416_time(model, imgs, size, iters, label):
+    """Latency of predict (host clock around ``iters`` calls on the two
+    images in turn, ending in a synchronize), CUDA events around single
+    predicts, peak memory; checks that each image gives the same output
+    every time."""
+    from paddle_tpu_torch.dygraph import no_grad
+    with no_grad():
+        t0 = time.perf_counter()
+        ref = [model.predict(img, size) for img in imgs]   # warm-up
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = [model.predict(imgs[i % 2], size) for i in range(iters)]
+        torch.cuda.synchronize()
+        latency = (time.perf_counter() - t0) / iters * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        event_ms = []
+        for i in range(6):
+            start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+            start.record()
+            model.predict(imgs[i % 2], size)
+            end.record()
+            torch.cuda.synchronize()
+            event_ms.append(start.elapsed_time(end))
+    same = all(torch.equal(d, ref[i % 2][0]) and torch.equal(n, ref[i % 2][1])
+               for i, (d, n) in enumerate(outs))
+    print(f"[yolov3] {label}: latency {latency:.3f} ms a predict ({iters} "
+          f"predicts, batch 1), CUDA events around one predict "
+          f"{min(event_ms):.3f}-{max(event_ms):.3f} ms, peak_mem "
+          f"{peak:.3f} GiB, warm-up {warm_s:.1f} s; outputs of each image "
+          f"{'identical' if same else 'DIFFER'} across calls")
+    check(same, f"{label}: predict is not deterministic")
+    return ref
+
+
+def _yolo416_profile(model, img, size, label):
+    """Device time of the network and of decode alone (queued behind a
+    spin, so the host's launch time is not timed), and one profiled
+    predict: device busy, idle share, time by op, launches, host syncs."""
+    from paddle_tpu_torch.dygraph import no_grad
+    with no_grad():
+        # few calls: with 10 networks (about 300 launches each) queued
+        # behind the spin, the host seems to block on the queue of
+        # pending launches and its time is timed (5.8-11.1 ms against
+        # the 5.2 ms the profiler sums; 2 calls read 5.5)
+        net_ms = cuda_ms(lambda: model(img), n=2)
+        heads = model(img)
+        dec_ms = cuda_ms(lambda: model.decode(heads, size), n=5)
+        prof = profile_call(lambda: model.predict(img, size))
+    by_op = prof["by_op_ms"]
+    nms = by_op.get("multiclass_nms", 0.0) + by_op.get("transpose2", 0.0)
+    print(f"[yolov3] {label}: device time, CUDA events behind a spin: "
+          f"network {net_ms:.3f} ms, decode {dec_ms:.3f} ms; one profiled "
+          f"predict: device busy {prof['busy_ms']:.3f} ms of "
+          f"{prof['wall_ms']:.3f} ms (idle share "
+          f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}), NMS "
+          f"{nms:.3f} ms of device time, {prof['device_events']} device "
+          f"events, {prof['launches']} kernel launches, {prof['syncs']} "
+          f"host syncs (cudaStreamSynchronize)")
+    print(f"[yolov3] {label}: device ms by op: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(by_op.items(), key=lambda kv:
+                                          -kv[1])))
+    print(f"[yolov3] {label}: CUDA runtime calls: " + ", ".join(
+        f"{k} {v}" for k, v in prof["runtime"].most_common(8)))
+    return prof
+
+
+def phase_yolov3(tpt, dev):
+    """The YOLOv3-416 leg of bench.py (yolov3_infer, BASELINE config 5):
+    yolov3(num_classes=80) from seed 0, eval(), batch 1, 416 px, fp32,
+    predict = network + decode + multiclass_nms, with the initial BN
+    statistics (as the bench's model) and calibrated ones; cudnn.benchmark
+    on, TF32 off, and one timing with cuDNN's TF32 on (torch's default).
+    The bench's statistics are also run on the CPU: saturated heads make
+    tie order decide, and the card must give the same detections."""
+    from paddle_tpu_torch.convert import load_state_dict
+    from paddle_tpu_torch.dygraph import no_grad
+    from paddle_tpu_torch.vision import yolov3
+    px, classes, iters = (YOLO_416[k] for k in ("px", "classes", "iters"))
+    tpt.set_device(dev)
+    tpt.seed(0)
+    t0 = time.perf_counter()
+    model = yolov3(num_classes=classes).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    imgs = [torch.rand((1, 3, px, px), generator=gen, device=dev)
+            for _ in range(2)]
+    calib = torch.rand((YOLO_416["calib"], 3, px, px), generator=gen,
+                       device=dev)
+    size = torch.full((1, 2), px, dtype=torch.int32, device=dev)
+    states = {"bench": {k: v.detach().cpu().numpy().copy()
+                        for k, v in model.state_dict().items()}}
+    states["calibrated"] = calibrated_state(model, calib)
+    torch.cuda.synchronize()
+    flops = 2 * sum(conv_macs(model, imgs[0]))
+    print(f"[yolov3] YOLOv3-416 {n_params} params, built and calibrated in "
+          f"{time.perf_counter() - t0:.1f} s; convolutions {flops / 1e9:.3f} "
+          f"GFLOP a predict: {flops / PEAK_OPS_S[torch.float32] * 1e3:.3f} "
+          f"ms at the fp32 peak (67 TFLOP/s), {flops / 495e12 * 1e3:.3f} ms "
+          f"at TF32's 495")
+    refs = {}
+    torch.backends.cudnn.benchmark = True
+    try:
+        for name in ("bench", "calibrated"):
+            load_state_dict(model, states[name])
+            refs[name] = _yolo416_time(model, imgs, size, iters, name)
+            _yolo416_profile(model, imgs[0], size, name)
+            dets, num = refs[name][0]
+            valid = dets[0, :, 0] >= 0
+            kept = dets[0][valid]
+            print(f"[yolov3] {name}: NmsedNum {num.tolist()}, kept scores "
+                  f"from {kept[:, 1].min().item() if len(kept) else 0:.6f} "
+                  f"to {kept[:, 1].max().item() if len(kept) else 0:.6f}, "
+                  f"labels {sorted(set(kept[:, 0].long().tolist()))[:10]}")
+            check(dets.shape == (1, 100, 6) and bool(
+                torch.isfinite(dets).all()), f"{name}: bad dets")
+            check(int(valid.sum()) == int(num[0]) and 0 < int(num[0]) <= 100,
+                  f"{name}: NmsedNum {num.tolist()} against the rows")
+            out = ((kept[:, 2:] < 0) | (kept[:, 2:] > px)).any(-1)
+            check(not bool(out.any()), f"{name}: boxes outside the image: "
+                  f"{kept[out][:5].tolist()}")
+        torch.backends.cudnn.allow_tf32 = True
+        label = "calibrated, cudnn.allow_tf32=True (torch's default)"
+        _yolo416_time(model, imgs, size, iters, label)
+        _yolo416_profile(model, imgs[0], size, label)
+    finally:
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
+    tpt.set_device("cpu")
+    cpu_model = load_state_dict(yolov3(num_classes=classes),
+                                states["bench"]).eval()
+    with no_grad():
+        want = cpu_model.predict(imgs[0].cpu(), size.cpu())
+    got = [t.cpu() for t in refs["bench"][0]]
+    box = (got[0][..., 2:] - want[0][..., 2:]).abs().max().item()
+    same = torch.equal(got[1], want[1]) and torch.equal(
+        got[0][..., :2], want[0][..., :2])
+    print(f"[yolov3] bench statistics, card against CPU: NmsedNum card "
+          f"{got[1].tolist()} cpu {want[1].tolist()}, labels and scores "
+          f"{'equal' if same else 'DIFFER'}, boxes max_abs {box:.3e} px "
+          f"(bound {YOLO_TINY_TOL['box']:g})")
+    check(same and box <= YOLO_TINY_TOL["box"],
+          "YOLOv3-416 detections on the card disagree with the CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -786,6 +1359,9 @@ def main():
     launches = phase_bert(tpt, fa, dev)
     phase_resnet_tiny(tpt, dev)
     phase_resnet(tpt, dev)
+    phase_detection_ops(dev)
+    phase_yolov3_tiny(tpt, dev)
+    phase_yolov3(tpt, dev)
     record = {"kernels": [dict(name=name, route="cuda", source=SOURCE,
                                replaces=REPLACES[name],
                                launches=launches[name],

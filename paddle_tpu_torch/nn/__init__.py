@@ -2,7 +2,8 @@
 
 Port of ``Linear``, ``Conv2D``, the batch norms, the 2-D pools,
 ``LayerNorm``, ``Embedding``, ``Dropout``, ``Flatten``, ``ReLU``,
-``ReLU6`` and ``ParamAttr`` from ``paddle_tpu/nn/__init__.py``. Weights
+``ReLU6``, ``LeakyReLU`` and ``ParamAttr`` from
+``paddle_tpu/nn/__init__.py``. Weights
 keep the reference's layouts (``Linear`` is ``[in, out]``, ``Conv2D``
 OIHW in either data format), so weights carry across with no transposes.
 """
@@ -269,3 +270,12 @@ class ReLU(Layer):
 class ReLU6(Layer):
     def forward(self, x):
         return F.relu6(x)
+
+
+class LeakyReLU(Layer):
+    def __init__(self, negative_slope=0.01):
+        super().__init__()
+        self._slope = negative_slope
+
+    def forward(self, x):
+        return F.leaky_relu(x, self._slope)

@@ -1,2 +1,3 @@
 """Registered ops. Importing this package registers every op type."""
-from . import flash_attention, math, nn_ops, optimizer_ops, tensor_ops  # noqa: F401
+from . import (detection_ops, flash_attention, math, nn_ops,  # noqa: F401
+               optimizer_ops, tensor_ops)

@@ -1,7 +1,7 @@
 """Math / elementwise / activation / reduction ops.
 
 Port of the op types of ``paddle_tpu/ops/math.py`` that a BERT
-pretraining step and a ResNet training step run. Paddle's elementwise
+pretraining step, a ResNet training step and YOLOv3 inference run. Paddle's elementwise
 ``axis`` broadcast (y aligned to x starting at ``axis``) is kept. Plain
 torch ops: the JAX package left these to XLA, and the port leaves them
 to torch's own kernels.
@@ -99,6 +99,15 @@ def relu6(inputs, attrs):
     """clip(x, 0, threshold); no gradient at either end (lax.clamp's)."""
     return {"Out": [torch.nn.functional.hardtanh(
         _x(inputs), 0.0, attrs.get("threshold", 6.0))]}
+
+
+@register_op("leaky_relu")
+def leaky_relu(inputs, attrs):
+    """x where x > 0, else alpha * x (the reference's default alpha is
+    0.02). The gradient at exactly 0 is alpha here and 1 in the
+    reference (``jnp.where(x >= 0, ...)``); values are equal."""
+    return {"Out": [torch.nn.functional.leaky_relu(
+        _x(inputs), attrs.get("alpha", 0.02))]}
 
 
 @register_op("tanh")

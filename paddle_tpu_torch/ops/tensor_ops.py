@@ -1,11 +1,13 @@
-"""Tensor ops: dtype cast, reshape and flatten.
+"""Tensor ops: dtype cast, reshape, flatten, transpose and concat.
 
 Port of the op types of ``paddle_tpu/ops/tensor_ops.py`` that a BERT
-pretraining step and a ResNet training step run.
+pretraining step, a ResNet training step and YOLOv3 inference run.
 """
 from __future__ import annotations
 
 import math
+
+import torch
 
 from ..core import dtype as dtypes
 from ..core.registry import register_op
@@ -46,3 +48,22 @@ def flatten_contiguous_range(inputs, attrs):
     mid = math.prod(x.shape[start:stop + 1])
     return {"Out": [x.reshape(tuple(x.shape[:start]) + (mid,)
                               + tuple(x.shape[stop + 1:]))]}
+
+
+@register_op("transpose2", intermediate_outputs=("XShape",))
+def transpose2(inputs, attrs):
+    """``Out`` is a permuted view (no copy); ``XShape`` is the reference's
+    empty tensor that carries the input shape, allocated with no bytes."""
+    x = inputs["X"][0]
+    return {"Out": [x.permute(*attrs["axis"])],
+            "XShape": [x.new_empty((0,) + tuple(x.shape))]}
+
+
+@register_op("concat")
+def concat(inputs, attrs):
+    """``AxisTensor``, when given, overrides the ``axis`` attr (read on
+    the host, as the reference does)."""
+    axis = attrs.get("axis", 0)
+    if inputs.get("AxisTensor"):
+        axis = int(inputs["AxisTensor"][0])
+    return {"Out": [torch.cat(inputs["X"], dim=axis)]}

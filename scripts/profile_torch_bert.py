@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where a train step of paddle_tpu_torch spends its time on one CUDA
-card: BERT-base O1 or ResNet-50 O1.
+card: BERT-base O1 or ResNet-50 O1; or a YOLOv3-416 predict.
 
     python3 scripts/profile_torch_bert.py [--steps 3]
     python3 scripts/profile_torch_bert.py --model resnet50 --layout NHWC
+    python3 scripts/profile_torch_bert.py --model yolov3 [--steps 5]
 
 Builds the step as chip_smoke.py does. BERT: BertForPretraining,
 Momentum 1e-4 / 0.9, TrainStep amp_level="O1", batch 16, seq 128.
@@ -122,21 +123,128 @@ def transforms(prof, act_numel, n):
     return {key: us / n for key, us in out.items()}
 
 
+YOLO_FAMILIES = {"conv2d": "conv (cuDNN)", "batch_norm": "batch norm",
+                 "leaky_relu": "leaky ReLU / residual and bias adds",
+                 "elementwise_add": "leaky ReLU / residual and bias adds",
+                 "interpolate": "upsample + concat",
+                 "concat": "upsample + concat"}
+
+
+def _ranged(name, fn):
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return run
+
+
+def yolo_family(event):
+    """The YOLOv3 family of a CPU event's kernels, from the ranges around
+    it: a stage ("stage:network" / "stage:decode", else NMS) and an op."""
+    from chip_smoke import kernel_op
+    op, stage = kernel_op(event), "nms"
+    while event is not None:
+        if event.name.startswith("stage:"):
+            stage = event.name[6:]
+            break
+        event = event.cpu_parent
+    if stage == "network":
+        return YOLO_FAMILIES.get(op, "network, other")
+    return {"decode": "decode (yolo_box, concat)"}.get(
+        stage, "NMS (transpose2, multiclass_nms)")
+
+
+def profile_yolov3(dev, steps):
+    from chip_smoke import (YOLO_416, calibrated_state, device_busy_us,
+                            op_ranges)
+    from paddle_tpu_torch.convert import load_state_dict
+    from paddle_tpu_torch.dygraph import no_grad
+    from paddle_tpu_torch.vision import yolov3
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = False
+    px = YOLO_416["px"]
+    model = yolov3(num_classes=YOLO_416["classes"]).eval()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    img = torch.rand((1, 3, px, px), generator=gen, device=dev)
+    calib = torch.rand((YOLO_416["calib"], 3, px, px), generator=gen,
+                       device=dev)
+    size = torch.full((1, 2), px, dtype=torch.int32, device=dev)
+    bench = {k: v.detach().cpu().numpy().copy()
+             for k, v in model.state_dict().items()}
+    states = {"bench": bench, "calibrated": calibrated_state(model, calib)}
+    model.forward = _ranged("stage:network", model.forward)
+    model.decode = _ranged("stage:decode", model.decode)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for name, state in states.items():
+        load_state_dict(model, state)
+        with no_grad():
+            for _ in range(2):
+                model.predict(img, size)
+            torch.cuda.synchronize()
+            with op_ranges(), torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    model.predict(img, size)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+        dev_events = [e for e in events if e.device_type == cuda and
+                      not e.name.startswith(("op:", "stage:"))]
+        if not dev_events:
+            print("profile_torch_bert: the trace holds no device event",
+                  file=sys.stderr)
+            return 1
+        busy = device_busy_us(dev_events)
+        runtime = collections.Counter(e.name for e in events
+                                      if e.device_type == cpu and
+                                      e.name.startswith("cu"))
+        by_family, by_name = collections.Counter(), collections.Counter()
+        for e in events:
+            if e.device_type == cpu:
+                for k in e.kernels:
+                    by_family[yolo_family(e)] += k.duration
+                    by_name[k.name] += k.duration
+        total = sum(e.time_range.end - e.time_range.start for e in dev_events)
+        n = steps
+        print(f"[profile] yolov3 {name}: {n} predicts  wall "
+              f"{wall_us / n / 1e3:.3f} ms/predict  device busy "
+              f"{busy / n / 1e3:.3f} ms/predict  idle share "
+              f"{1 - busy / wall_us:.3f}  device events "
+              f"{len(dev_events) / n:.0f}/predict  kernel launches "
+              f"{sum(c for k, c in runtime.items() if 'LaunchKernel' in k) / n:.0f}"
+              f"/predict  host syncs "
+              f"{runtime.get('cudaStreamSynchronize', 0) / n:.1f}/predict")
+        for fam, us in by_family.most_common():
+            print(f"[profile]   {fam:<38} {us / n / 1e3:8.3f} ms/predict  "
+                  f"{us / total:6.1%} of device time")
+        print(f"[profile]   {'(not linked to an op)':<38} "
+              f"{(total - sum(by_family.values())) / n / 1e3:8.3f} ms/predict")
+        for kname, us in by_name.most_common(12):
+            print(f"[profile]     {us / n / 1e3:8.3f} ms/predict  {kname[:100]}")
+        print(f"[profile]   CUDA runtime calls a predict: " + ", ".join(
+            f"{k} {c / n:g}" for k, c in runtime.most_common(10)))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--model", choices=("bert", "resnet50"), default="bert")
+    ap.add_argument("--model", choices=("bert", "resnet50", "yolov3"),
+                    default="bert")
     ap.add_argument("--layout", choices=("NHWC", "NCHW"), default="NHWC")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_bert: no CUDA device", file=sys.stderr)
         return 2
     import paddle_tpu_torch as tpt
-    from chip_smoke import card_line
+    from chip_smoke import card_line, device_busy_us
     print(card_line())
     dev = torch.device("cuda")
     tpt.set_device(dev)
     tpt.seed(0)
+    if args.model == "yolov3":
+        return profile_yolov3(dev, args.steps)
     resnet = args.model == "resnet50"
     model, train, batch = (build_resnet(dev, args.layout) if resnet
                            else build_bert(dev))
@@ -160,16 +268,7 @@ def main():
         print("profile_torch_bert: the trace holds no device event",
               file=sys.stderr)
         return 1
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in dev_events)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+    busy = device_busy_us(dev_events)
     n = args.steps
     launched_by = collections.defaultdict(set)   # kernel -> its ops
     for e in prof.events():

@@ -36,3 +36,5 @@ def test_no_jax_or_reference_import(path):
 def test_scan_sees_the_package():
     assert len(FILES) > 15
     assert (ROOT / "chip_smoke.py").exists()
+    for module in ("ops/detection_ops.py", "vision/detection_models.py"):
+        assert ROOT / "paddle_tpu_torch" / module in FILES

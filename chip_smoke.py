@@ -16,24 +16,44 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      Sq != Sk and at S = 17 and 65, also through the autograd Function;
      check that two launches of each kernel give the same bits, and that
      K1's o and lse and K2/K3's gradients at BERT-base hold fp32 accuracy
-     against float64 (bounds that plain TF32 fails); time each kernel with
-     CUDA events beside its bound on the units it runs on (all three run
-     on the tensor cores in 3xTF32) and both yardsticks, its plain version
-     and torch's SDPA (a yardstick only; SDPA's backward stands beside the
-     K2 + K3 pair);
-  4. BERT-tiny (head dim 64) for 2 O0 steps on the card and on the CPU
+     against float64 (bounds that plain TF32 fails); the same checks
+     against the plain versions in fp16; time each kernel at
+     BERT-base in fp32 (what O1 feeds it) and in bf16 (what O2 feeds it)
+     with CUDA events beside its bound on the units it runs on (3xTF32
+     on fp32 inputs; on bf16 inputs the TF32 passes it takes) and a
+     yardstick (the fp32 CUDA cores; the bf16 tensor-core rate), its
+     plain version and torch's SDPA in the same dtype (a yardstick only;
+     SDPA's backward stands beside the K2 + K3 pair);
+  4. flash_route: the flash_attention op on inputs K1-K3 take only after
+     the op pads or copies them (head dims 32 and 96, a strided q, an
+     unaligned q) and in fp16, on the card against the CPU: each launches
+     K1-K3 once and nothing takes the blockwise route;
+  5. BERT-tiny (head dim 64) for 2 O0 steps on the card and on the CPU
      from the same weights: losses and parameters agree;
-  5. the main path: BERT-base pretraining through BertForPretraining,
+  6. tiny_o2: BERT-tiny at AMP O2 on the card against the CPU: bf16
+     through amp.decorate and TrainStep with fp32 masters, AdamW,
+     LinearWarmup, ClipGradByGlobalNorm(1.0) and weight decay, 3 steps
+     (K1-K3 on bf16 inputs); then fp16 in the eager loop with GradScaler,
+     where two forced overflows are skipped and the scale halves (K1-K3
+     on fp16 inputs);
+  7. the O1 main path: BERT-base pretraining through BertForPretraining,
      Momentum and TrainStep(amp_level="O1") at batch 16, seq 128 (as
      bench.py builds it), 2 warm-up and 5 timed steps; losses finite, step
      time, samples/s, peak memory and the kernels' launch counts (12 a step
      each);
-  6. resnet18 at 64 px, batch 4, for 2 O0 steps (Momentum 1e-2) on the
+  8. bert_o2, the main path of the O2 slice: BERT-base at AMP O2 bf16
+     (amp.decorate, fp32 masters, AdamW with LinearWarmup(PolynomialDecay),
+     ClipGradByGlobalNorm(1.0), weight decay 0.01), batch 16, seq 128, 2
+     warm-up and 5 timed steps: step time, samples/s, peak memory,
+     launches and host syncs of one profiled step; K1-K3 launched 12 times
+     a step each on bf16 inputs, nothing on the blockwise route, the
+     parameters bf16 and the masters fp32 and moved;
+  9. resnet18 at 64 px, batch 4, for 2 O0 steps (Momentum 1e-2) on the
      card and on the CPU
      from the same weights, in NHWC and NCHW: losses, parameters and the
      BN running statistics agree (cuDNN's conv, batch norm and pool
      kernels against torch's CPU ones; TF32 off, cudnn.benchmark off);
-  7. the second model of the main path: ResNet-50 training as bench.py
+  10. the second model of the main path: ResNet-50 training as bench.py
      runs it (resnet50(num_classes=1000), cross_entropy, Momentum(0.1,
      0.9), TrainStep(amp_level="O1"), batch 256, 224 px), NHWC then NCHW
      from the same weights and images, 2 warm-up and 5 timed steps each
@@ -42,17 +62,17 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      peak memory. It runs no kernel of the port's own: XLA compiled the
      JAX package's conv, batch norm and pool ops, and the port leaves
      them to cuDNN and torch.
-  8. detection_ops: every op of the detection module (yolo_box,
+  11. detection_ops: every op of the detection module (yolo_box,
      multiclass_nms, matrix_nms, the prior generators, box_coder,
      iou_similarity, box_clip, roi_align, bipartite_match, yolov3_loss
      with its gradient) and leaky_relu, concat, transpose2 and
      interpolate on the card against the CPU from the same inputs;
      multiclass_nms exact, also on saturated ties and at YOLOv3-416's
      shape (10,647 boxes, 80 classes, nms_top_k 400);
-  9. yolov3_tiny: YOLOv3 at full depth, 4 classes, 64 px, batch 2, on the
+  12. yolov3_tiny: YOLOv3 at full depth, 4 classes, 64 px, batch 2, on the
      card against the CPU, with the initial and with calibrated BN
      statistics: heads, boxes, scores and detections agree;
- 10. yolov3: the third model of the main path, bench.py's YOLOv3-416
+  13. yolov3: the third model of the main path, bench.py's YOLOv3-416
      inference leg (yolov3(num_classes=80), eval(), batch 1, 416 px,
      fp32, predict = network + yolo_box decode + multiclass NMS), with
      the bench's initial BN statistics and calibrated ones: latency over
@@ -60,8 +80,9 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      memory, NmsedNum, conv FLOPs and their bound, one timing with
      cuDNN's TF32 on; the initial statistics' detections equal on the
      card and the CPU. No kernel of the port's own: cuDNN and torch's.
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+The last two lines are the kernels' JSON record (each kernel at fp32,
+its launches from phase 7, and as <name>_bf16 at bf16, its launches
+from phase 8) and {"ok": true, "device": {...}}.
 """
 import collections
 import contextlib
@@ -87,8 +108,11 @@ PEAK_TC_OPS_S = {torch.float32: 495e12 / 3}
 # the units each kernel's products run on; its bound_ms is theirs
 UNITS = {name: ("tensor cores, 3xTF32", PEAK_TC_OPS_S)
          for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+FP16_TOL = (4e-3, 4e-3)      # a few fp16 ulps (11 significant bits)
 TOL = {torch.float32: {"o": (1e-4, 1e-5), "grad": (2e-3, 3e-4)},
-       torch.bfloat16: {"o": (2e-2, 2e-2), "grad": (2e-2, 2e-2)}}
+       torch.bfloat16: {"o": (2e-2, 2e-2), "grad": (2e-2, 2e-2)},
+       torch.float16: {"o": FP16_TOL, "grad": FP16_TOL}}
+CHECKED = (torch.float32, torch.bfloat16, torch.float16)
 LSE_TOL = (1e-4, 1e-5)
 # Relative Frobenius error of K1's o and K2/K3's dq, dk and dv against
 # float64 at BERT-base fp32, by the factor q is scaled with (8: a sharp
@@ -120,6 +144,10 @@ KERNEL_FN = {"flash_fwd": "flash_fwd_kernel",       # wrapper -> CUDA kernel
              "flash_bwd_dq": "flash_bwd_dq_kernel",
              "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
 PAIR = "flash_bwd_dq+flash_bwd_dkv"          # what SDPA's backward covers
+# TF32 passes a kernel runs on bf16 inputs, over its products
+# (flash_attention.cu:21-40): K1 S and P.V one each; K2 S and dP one, dQ
+# (A = dS, fp32) two; K3 S^T and dP^T one, dV and dK (A = P^T, dS^T) two
+TF32_PASSES_BF16 = {"flash_fwd": 2, "flash_bwd_dq": 4, "flash_bwd_dkv": 6}
 
 
 class CheckFailed(RuntimeError):
@@ -163,6 +191,7 @@ def cuda_ms(fn, n=20):
     the card runs them back to back and the host's launch cost (tens of
     microseconds a call, more than a kernel at these shapes) is not
     what gets timed."""
+    fn()                          # a first call may load or tune
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
@@ -205,12 +234,17 @@ def card_line():
 
 
 _INSTANCE = re.compile(
-    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16|6__half)"
+    r"Li(\d+)E")
+# mangled template argument -> name, in the order of the dtype codes
+# flash_attention.cu dispatches on (0, 1, 2)
+_DTYPE_NAME = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
 def hmma_counts(path):
     """(tensor-core HMMA instructions, all instructions) in each kernel's
-    SASS, by (kernel, "f32" | "bf16", D), from cuobjdump --dump-sass."""
+    SASS, by (kernel, "f32" | "bf16" | "f16", D), from cuobjdump
+    --dump-sass."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(path)],
                           capture_output=True, text=True, check=True,
@@ -219,7 +253,7 @@ def hmma_counts(path):
     for line in sass.splitlines():
         if "Function :" in line:
             m = _INSTANCE.search(line)
-            key = m and (m.group(1), "f32" if m.group(2) == "f" else "bf16",
+            key = m and (m.group(1), _DTYPE_NAME[m.group(2)],
                          int(m.group(3)))
             if key:
                 counts[key] = [0, 0]
@@ -256,14 +290,16 @@ def phase_build(kernels):
         print(f"[build] {key[0]} {key[1]} D{key[2]}: {hmma} HMMA "
               f"(tensor-core) instructions of {total} in its SASS")
     for fn in KERNEL_FN.values():
-        for key in ((fn, "f32", 64), (fn, "f32", 128), (fn, "bf16", 64),
-                    (fn, "bf16", 128)):
-            check(counts.get(key, [0])[0] > 0, f"{key}: no HMMA in its SASS")
+        for dname in _DTYPE_NAME.values():
+            for d in (64, 128):
+                key = (fn, dname, d)
+                check(counts.get(key, [0])[0] > 0,
+                      f"{key}: no HMMA in its SASS")
     lib = kernels.library("flash_attention")
     b, s, h, d, _ = BERT_SHAPE
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for which, wrapper in enumerate(REPLACES):
-        for dtype_code, dname in ((0, "f32"), (1, "bf16")):
+        for dtype_code, dname in enumerate(_DTYPE_NAME.values()):
             blocks, threads, smem, rows = occupancy(lib, which, dtype_code, d)
             grid = b * h * -(-s // rows)
             print(f"[build] {KERNEL_FN[wrapper]} {dname} D{d}: {blocks} "
@@ -273,9 +309,10 @@ def phase_build(kernels):
 
 
 def phase_kernels(fa, dev):
-    errs = {w.__name__: 0.0 for w in fa.WRAPPERS}
+    """Returns the largest error of each kernel by (wrapper, dtype)."""
+    errs = {(w.__name__, dt): 0.0 for w in fa.WRAPPERS for dt in CHECKED}
     for (b, sq, sk, h, d, causal) in CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in CHECKED:
             gen = torch.Generator(device=dev).manual_seed(b * sq + sk + h + d)
             q, k, v, g = (torch.randn(b, n, h, d, generator=gen, device=dev)
                           .to(dtype) for n in (sq, sk, sk, sq))
@@ -289,7 +326,7 @@ def phase_kernels(fa, dev):
             torch.cuda.synchronize()
             e = err_of(o, o_r, *tol["o"], "o")
             e = max(e, err_of(lse, lse_r, *LSE_TOL, "lse"))
-            errs["flash_fwd"] = max(errs["flash_fwd"], e)
+            errs["flash_fwd", dtype] = max(errs["flash_fwd", dtype], e)
             # kernels first: their outputs cannot reuse a freed buffer that
             # already holds the plain version's answer
             o_r = o_r.to(dtype)
@@ -303,10 +340,11 @@ def phase_kernels(fa, dev):
             torch.cuda.synchronize()
             e = err_of(delta, delta_r, *tol["o"], "delta")
             e = max(e, err_of(dq, dq_r, *tol["grad"], "dq"))
-            errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e)
+            errs["flash_bwd_dq", dtype] = max(errs["flash_bwd_dq", dtype], e)
             e = max(err_of(dk, dk_r, *tol["grad"], "dk"),
                     err_of(dv, dv_r, *tol["grad"], "dv"))
-            errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], e)
+            errs["flash_bwd_dkv", dtype] = max(errs["flash_bwd_dkv", dtype],
+                                               e)
             # the autograd Function end to end (K1, then K2 and K3)
             qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
             out = fa.flash_attention(qa, ka, va, causal=causal)
@@ -411,12 +449,25 @@ def phase_fp64(fa, dev):
         check(not bad, f"K1-K3 against float64 at q*{q_mul:g}: {errs}")
 
 
-def phase_timing(fa, dev):
+def bound_tf32_passes(kernel, b, s, h, d):
+    """K1-K3's own bound on bf16 inputs: bytes at 2 an element against
+    the TF32 passes they run on them (flash_attention.cu:21-40: a product
+    of two staged bf16 tiles is exact in TF32 and takes one pass, one
+    whose A is the fp32 P or dS takes two, and K1 rounds P to bf16)."""
+    t_bytes, _ = bound(kernel, b, s, h, d, torch.bfloat16,
+                       {torch.bfloat16: math.inf})
+    t_ops = TF32_PASSES_BF16[kernel] * 2 * b * h * s * s * d / 495e12 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_timing(fa, dev, dtype):
+    """K1-K3 at BERT-base in ``dtype`` (fp32, what O1 feeds them; bf16,
+    what O2 feeds them): CUDA events beside their own bound, a yardstick
+    bound, their plain versions and SDPA in the same dtype."""
     b, s, h, d, causal = BERT_SHAPE
-    dtype = torch.float32            # what the O1 main path feeds them
     gen = torch.Generator(device=dev).manual_seed(7)
     q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
-                  for _ in range(4))
+                  .to(dtype) for _ in range(4))
     scale = 1.0 / math.sqrt(d)
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     _, delta = fa.flash_bwd_dq(q, k, v, o, g, lse, causal, scale)
@@ -446,29 +497,37 @@ def phase_timing(fa, dev):
             q, k, v, g, lse, delta, causal, scale)), plain_bwd, sdpa_bwd),
     }
     pair_ms = cuda_ms(pair)
+    dname = str(dtype).split(".")[-1]
     rows = {}
     for name, (ms, plain_ms, lib_ms) in timed.items():
-        units, peak = UNITS[name]
-        bound_ms, bound_by = bound(name, b, s, h, d, dtype, peak)
-        fp_ms, fp_by = bound(name, b, s, h, d, dtype)
-        # the fp32 yardstick stays beside the own bound: it keeps shares
-        # comparable with the CUDA-core kernels of before
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=lib_ms,
-                          bound_units=units,
-                          bound_fp32_cores_ms=fp_ms,
-                          bound_fp32_cores_by=fp_by)
+        if dtype == torch.float32:
+            units, peak = UNITS[name]
+            bound_ms, bound_by = bound(name, b, s, h, d, dtype, peak)
+            # the fp32 yardstick keeps shares comparable with the
+            # CUDA-core kernels of before
+            yard = "bound_fp32_cores"
+        else:
+            units = "tensor cores, TF32 passes on bf16 inputs"
+            bound_ms, bound_by = bound_tf32_passes(name, b, s, h, d)
+            # what the bf16 tensor-core rate (989 TFLOP/s) would allow
+            yard = "bound_bf16_tensor_cores"
+        y_ms, y_by = bound(name, b, s, h, d, dtype)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": lib_ms,
+                      "dtype": dname, "bound_units": units,
+                      yard + "_ms": y_ms, yard + "_by": y_by}
         if name != "flash_fwd":
             rows[name]["library_covers"] = PAIR
-        print(f"[time] {name:<14} {ms:.4f} ms  bound {bound_ms:.4f} ms "
-              f"({bound_by}, {units}; {bound_ms / ms:.1%})  fp32-core "
-              f"bound {fp_ms:.4f} ms ({fp_by}; {fp_ms / ms:.1%})  "
-              f"plain {plain_ms:.4f} ms  library "
+        print(f"[time] {dname} {name:<14} {ms:.4f} ms  bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {units}; "
+              f"{bound_ms / ms:.1%})  {yard} {y_ms:.4f} ms ({y_by}; "
+              f"{y_ms / ms:.1%})  plain {plain_ms:.4f} ms  library "
               f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-    print(f"[time] K2 + K3 pair {pair_ms:.4f} ms against SDPA backward (dq, "
-          f"dk, dv in one call) {sdpa_bwd:.4f} ms: "
-          f"{pair_ms / sdpa_bwd:.3f}x; the plain backward above computes "
-          f"all three")
+    print(f"[time] {dname} K2 + K3 pair {pair_ms:.4f} ms against SDPA "
+          f"backward (dq, dk, dv in one call) {sdpa_bwd:.4f} ms: "
+          f"{pair_ms / sdpa_bwd:.3f}x; K1 against SDPA forward "
+          f"{timed['flash_fwd'][0] / sdpa_fwd:.3f}x; the plain backward "
+          f"above computes all three")
     return rows
 
 
@@ -574,6 +633,320 @@ def phase_bert(tpt, fa, dev):
     for name, n in launches.items():
         check(n == 12 * n_steps, f"{name}: {n} launches, expected "
               f"{12 * n_steps} (12 a step)")
+    return launches
+
+
+# inputs K1-K3 take only after the flash_attention op pads the head dim
+# or copies q, and fp16: (label, B, S, H, D, dtype, layout of q: "bshd",
+# "strided" (columns of a tensor twice as wide), "unaligned" (4 bytes
+# past 16-byte alignment))
+FLASH_ROUTE_CASES = [("head dim 32", 2, 128, 8, 32, torch.float32, "bshd"),
+                     ("head dim 96", 2, 128, 4, 96, torch.bfloat16, "bshd"),
+                     ("fp16", 2, 128, 12, 64, torch.float16, "bshd"),
+                     ("non-contiguous q", 2, 128, 12, 64, torch.float32,
+                      "strided"),
+                     ("unaligned q", 2, 128, 12, 64, torch.float32,
+                      "unaligned")]
+
+
+@contextlib.contextmanager
+def op_dtypes():
+    """While active, counts the dtypes of q, k and v the flash_attention
+    op is called with."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    opdef = OpInfoMap.instance().get("flash_attention")
+    real = opdef.compute
+    seen = collections.Counter()
+
+    def spy(inputs, attrs):
+        seen[tuple(str(inputs[s][0].dtype).split(".")[-1]
+                   for s in ("Q", "K", "V"))] += 1
+        return real(inputs, attrs)
+    opdef.compute = spy
+    try:
+        yield seen
+    finally:
+        opdef.compute = real
+
+
+def _flash_op(fa, dev, ts, causal, layout):
+    """The flash_attention op on ``dev``: (o, dq, dk, dv) in fp32 on the
+    CPU, the op's blockwise-route calls and the wrappers' launches."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    q, k, v, g = (t.to(dev) for t in ts)
+    b, s, h, d = q.shape
+    if layout == "strided":       # q as columns of a tensor twice as wide
+        q = torch.cat([q.reshape(b, s, h * d)] * 2, -1)[..., :h * d].view(
+            b, s, h, d)
+        check(not q.is_contiguous(), "the strided q is contiguous")
+    elif layout == "unaligned":
+        flat = torch.empty(q.numel() + 8, dtype=q.dtype, device=dev)
+        off = (-flat.data_ptr() % 16 + 4) // q.element_size()
+        q = flat[off:off + q.numel()].view(b, s, h, d).copy_(q)
+        check(q.is_contiguous() and q.data_ptr() % 16 == 4,
+              "the unaligned q is aligned")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    calls = fa.blockwise_route.calls
+    launches = [w.launches for w in fa.WRAPPERS]
+    out = OpInfoMap.instance().get("flash_attention").compute(
+        {"Q": leaves[:1], "K": leaves[1:2], "V": leaves[2:]},
+        {"causal": causal})["Out"][0]
+    (out.float() * g.float()).sum().backward()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    got = [x.detach().float().cpu() for x in (out, *(t.grad for t in leaves))]
+    return (got, fa.blockwise_route.calls - calls,
+            [w.launches - n for w, n in zip(fa.WRAPPERS, launches)])
+
+
+def phase_flash_route(fa, dev):
+    """The flash_attention op on inputs K1-K3 take only after the op pads
+    or copies them, and in fp16, on the card against the CPU: K1-K3 are
+    launched once each, and nothing takes the blockwise route."""
+    for label, b, s, h, d, dtype, layout in FLASH_ROUTE_CASES:
+        gen = torch.Generator().manual_seed(17)
+        ts = [torch.randn(b, s, h, d, generator=gen).to(dtype)
+              for _ in range(4)]
+        tol = TOL[dtype]
+        for causal in (False, True):
+            want, cpu_calls, _ = _flash_op(fa, torch.device("cpu"), ts,
+                                           causal, layout)
+            got, calls, launches = _flash_op(fa, dev, ts, causal, layout)
+            print(f"[flash_route] {label} B{b} S{s} H{h} D{d} "
+                  f"causal={causal}: K1-K3 launches {launches}, "
+                  f"blockwise-route calls card {calls} cpu {cpu_calls}")
+            check(calls == cpu_calls == 0 and launches == [1, 1, 1],
+                  f"{label}: K1-K3 not launched once each")
+            for name, x, y in zip(("o", "dq", "dk", "dv"), got, want):
+                err_of(x, y, *tol["o" if name == "o" else "grad"], name)
+
+
+# the O2 comparisons of tests/test_torch_bert_o2.py: a parameter's master
+# by the norm of its update error (Adam scales a gradient element that is
+# rounding noise to about lr); the key bias, whose exact gradient is 0,
+# is left out
+O2_UPDATE_TOL = 2.0 ** -2
+O2_LOSS_TOL = (4e-3, 1e-5)
+ZERO_GRAD = ".self_attn.k_bias"
+
+
+def o2_update_errors(got, want, start):
+    """(worst name, worst, median) of update_error over the masters."""
+    errs = {n: update_error(got[n], want[n], start[n]) for n in want
+            if not n.endswith(ZERO_GRAD)}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst], sorted(errs.values())[len(errs) // 2]
+
+
+def _o2_opt(model, lr_sched, clip=1.0):
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    return AdamW(learning_rate=lr_sched, weight_decay=0.01,
+                 grad_clip=ClipGradByGlobalNorm(clip),
+                 parameters=model.parameters())
+
+
+def _tiny_o2_run(tpt, fa, device, state, batch, steps=3):
+    """BERT-tiny through TrainStep at O2 bf16 with AdamW, LinearWarmup,
+    ClipGradByGlobalNorm(1.0) and weight decay 0.01."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import load_state_dict
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup, PolynomialDecay
+    from paddle_tpu_torch.text.models import BertForPretraining
+    tpt.set_device(device)
+    model = load_state_dict(BertForPretraining(**TINY), state)
+    sched = LinearWarmup(PolynomialDecay(1e-2, 10, 0.0), 2, 2e-3, 1e-2)
+    model, opt = amp.decorate(model, _o2_opt(model, sched), level="O2")
+    step = TrainStep(model, step_fn, opt, amp_level="O2")
+    calls = fa.blockwise_route.calls
+    launches = [w.launches for w in fa.WRAPPERS]
+    losses = []
+    with op_dtypes() as seen:
+        for _ in range(steps):
+            losses.append(float(step(*batch)))
+            sched.step()
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()) and
+          all(m.dtype == torch.float32 for m in step._masters.values()),
+          "O2: parameters not bf16 or masters not fp32")
+    return (losses, {n: m.cpu() for n, m in step._masters.items()},
+            fa.blockwise_route.calls - calls,
+            [w.launches - n for w, n in zip(fa.WRAPPERS, launches)], seen)
+
+
+def _tiny_fp16_run(tpt, fa, device, state, batch, plan):
+    """BERT-tiny at O2 fp16 in the eager loop with GradScaler: auto_cast,
+    scale, backward, step, clear_grad; a step marked in ``plan`` gets an
+    inf in one gradient after its backward. Returns the losses, the
+    scale after each step, which steps left every parameter as it was,
+    the masters, and the route counts."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import load_state_dict
+    from paddle_tpu_torch.text.models import BertForPretraining
+    tpt.set_device(device)
+    model = load_state_dict(BertForPretraining(**TINY), state)
+    model, opt = amp.decorate(model, _o2_opt(model, 1e-3), level="O2",
+                              dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10,
+                            decr_every_n_nan_or_inf=2)
+    calls = fa.blockwise_route.calls
+    launches = [w.launches for w in fa.WRAPPERS]
+    losses, scales, skipped = [], [], []
+    with op_dtypes() as seen:
+        for forced in plan:
+            before = [p.detach().clone() for p in model.parameters()]
+            with amp.auto_cast(level="O2", dtype="float16"):
+                loss = step_fn(model, *batch)
+            scaler.scale(loss).backward()
+            if forced:
+                with torch.no_grad():
+                    model.bert.embeddings.word.weight.grad[0, 0] = math.inf
+            scaler.step(opt)
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+            scales.append(scaler.get_loss_scaling())
+            skipped.append(all(torch.equal(a, p) for a, p in
+                               zip(before, model.parameters())))
+    check(all(p.dtype == torch.float16 for p in model.parameters()),
+          "fp16 O2: parameters not fp16")
+    masters = {n: opt._masters[i].cpu() for i, (n, _) in
+               enumerate(model.named_parameters()) if i in opt._masters}
+    return (losses, scales, skipped, masters,
+            fa.blockwise_route.calls - calls,
+            [w.launches - n for w, n in zip(fa.WRAPPERS, launches)], seen)
+
+
+def phase_tiny_o2(tpt, fa, dev):
+    """BERT-tiny (head dim 64) at O2 on the card against the CPU from the
+    same weights: bf16 through TrainStep, then fp16 in the eager loop with
+    GradScaler, where two forced overflows are skipped and the second
+    halves the scale. K1-K3 run once a layer a step on the card, on bf16
+    and then fp16 inputs; nothing takes the blockwise route."""
+    from paddle_tpu_torch.text.models import BertForPretraining
+    tpt.set_device("cpu")
+    tpt.seed(1)
+    state = {k: v.numpy().copy() for k, v in
+             BertForPretraining(**TINY).state_dict().items()}
+    gen = torch.Generator().manual_seed(3)
+    batch = make_batch(gen, "cpu", 2, 128, TINY["vocab_size"])
+    card_batch = tuple(t.to(dev) for t in batch)
+    n_layers = TINY["num_layers"]
+    for dtype in (torch.bfloat16, torch.float16):
+        dname = str(dtype).split(".")[-1]
+        start = {k: torch.from_numpy(v).to(dtype).float()
+                 for k, v in state.items()}
+        if dtype == torch.bfloat16:
+            steps = 3
+            cpu = _tiny_o2_run(tpt, fa, "cpu", state, batch, steps)
+            card = _tiny_o2_run(tpt, fa, dev, state, card_batch, steps)
+            losses, masters, calls, launches, seen = card
+            want_l, want_m = cpu[0], cpu[1]
+            print(f"[tiny_o2] bf16 TrainStep: losses card {losses} cpu "
+                  f"{want_l}")
+        else:
+            plan = [False, True, True, False, False]
+            steps = len(plan)
+            cpu = _tiny_fp16_run(tpt, fa, "cpu", state, batch, plan)
+            card = _tiny_fp16_run(tpt, fa, dev, state, card_batch, plan)
+            losses, scales, skipped, masters, calls, launches, seen = card
+            want_l, want_m = cpu[0], cpu[3]
+            print(f"[tiny_o2] fp16 GradScaler: losses card {losses} cpu "
+                  f"{want_l}; scale after each step card {scales} cpu "
+                  f"{cpu[1]}; skipped card {skipped} cpu {cpu[2]}")
+            check(scales == cpu[1] == [1024.0, 1024.0, 512.0, 512.0, 512.0],
+                  "fp16: the scale did not halve after two overflows")
+            check(skipped == cpu[2] == plan, "fp16: skipped steps wrong")
+        print(f"[tiny_o2] {dname}: K1-K3 launches {launches}, flash op "
+              f"q/k/v dtypes {dict(seen)}, blockwise-route calls {calls}")
+        check(launches == [n_layers * steps] * 3 and calls == 0 and
+              dict(seen) == {(dname,) * 3: n_layers * steps},
+              f"{dname} O2: K1-K3 not launched on {dname} inputs every "
+              f"layer")
+        err_of(torch.tensor(losses), torch.tensor(want_l), *O2_LOSS_TOL,
+               "loss")
+        worst, err, median = o2_update_errors(masters, want_m, start)
+        print(f"[tiny_o2] {dname}: masters' update error card against CPU "
+              f"worst {err:.3e} ({worst}), median {median:.3e} (bound "
+              f"{O2_UPDATE_TOL:g})")
+        check(err <= O2_UPDATE_TOL, f"{dtype} O2 masters disagree: {worst}")
+
+
+def phase_bert_o2(tpt, fa, dev):
+    """The main path of this slice: BERT-base pretraining at AMP O2 bf16
+    through amp.decorate and TrainStep(amp_level="O2"), with fp32
+    masters, AdamW, LinearWarmup(PolynomialDecay), a global-norm clip
+    and weight decay, at batch 16, seq 128."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup, PolynomialDecay
+    from paddle_tpu_torch.text.models import BertForPretraining
+    batch, seq, warmup, steps = 16, 128, 2, 5
+    tpt.set_device(dev)
+    tpt.seed(0)
+    t0 = time.perf_counter()
+    model = BertForPretraining(dropout=0.0)          # BERT-base widths
+    sched = LinearWarmup(PolynomialDecay(1e-4, 1000, 0.0), 10, 0.0, 1e-4)
+    model, opt = amp.decorate(model, _o2_opt(model, sched), level="O2")
+    train = TrainStep(model, step_fn, opt, amp_level="O2").ensure_state()
+    start = {n: m.clone() for n, m in train._masters.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = [make_batch(gen, dev, batch, seq, 30522) for _ in range(4)]
+    torch.cuda.synchronize()
+    print(f"[bert_o2] BERT-base O2 bf16, {len(start)} fp32 masters, built "
+          f"in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for w in fa.WRAPPERS:
+        w.launches = 0
+    fa.blockwise_route.calls = 0
+    with op_dtypes() as seen:
+        losses = []
+        for i in range(warmup):
+            losses.append(float(train(*batches[i % 4])))
+            sched.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = []
+        for i in range(steps):
+            out.append(train(*batches[(warmup + i) % 4]))
+            sched.step()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / steps
+    launches = {w.__name__: w.launches for w in fa.WRAPPERS}
+    calls = fa.blockwise_route.calls
+    losses += [float(x) for x in out]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_call(lambda: train(*batches[0]))
+    n_steps = warmup + steps
+    moved = sum(not torch.equal(m, start[n])
+                for n, m in train._masters.items())
+    print(f"[bert_o2] losses {losses}")
+    print(f"[bert_o2] step_ms {step_s * 1e3:.3f}  samples/s "
+          f"{batch / step_s:.2f}  peak_mem {peak:.3f} GiB")
+    print(f"[bert_o2] one profiled step: {prof['launches']} kernel launches, "
+          f"{prof['syncs']} host syncs (cudaStreamSynchronize), device busy "
+          f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms (idle share "
+          f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f})")
+    print(f"[bert_o2] device ms by op: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(prof["by_op_ms"].items(),
+                                          key=lambda kv: -kv[1])[:12]))
+    print(f"[bert_o2] CUDA runtime calls: " + ", ".join(
+        f"{k} {v}" for k, v in prof["runtime"].most_common(8)))
+    print(f"[bert_o2] launches over {n_steps} steps: {launches} (expected "
+          f"{12 * n_steps} each); flash op q/k/v dtypes {dict(seen)}; "
+          f"blockwise-route calls {calls}; masters moved {moved} of "
+          f"{len(start)}")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    check(abs(losses[0] - (math.log(30522) + math.log(2))) < 2.0,
+          "first loss far from ln(vocab) + ln(2)")
+    for name, n in launches.items():
+        check(n == 12 * n_steps, f"{name}: {n} launches, expected "
+              f"{12 * n_steps} (12 a step)")
+    check(dict(seen) == {("bfloat16",) * 3: 12 * n_steps},
+          f"flash op q/k/v dtypes {dict(seen)}: expected bf16 only")
+    check(calls == 0, f"{calls} calls took the blockwise route")
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()) and
+          all(m.dtype == torch.float32 for m in train._masters.values()),
+          "parameters not bf16 or masters not fp32")
+    check(moved >= len(start) - 1, "the masters did not move")
     return launches
 
 
@@ -1354,19 +1727,26 @@ def main():
     errs = phase_kernels(fa, dev)
     phase_determinism(fa, dev)
     phase_fp64(fa, dev)
-    rows = phase_timing(fa, dev)
+    rows = {dt: phase_timing(fa, dev, dt)
+            for dt in (torch.float32, torch.bfloat16)}
+    phase_flash_route(fa, dev)
     phase_tiny(tpt, dev)
-    launches = phase_bert(tpt, fa, dev)
+    phase_tiny_o2(tpt, fa, dev)
+    launches = {torch.float32: phase_bert(tpt, fa, dev),
+                torch.bfloat16: phase_bert_o2(tpt, fa, dev)}
     phase_resnet_tiny(tpt, dev)
     phase_resnet(tpt, dev)
     phase_detection_ops(dev)
     phase_yolov3_tiny(tpt, dev)
     phase_yolov3(tpt, dev)
-    record = {"kernels": [dict(name=name, route="cuda", source=SOURCE,
-                               replaces=REPLACES[name],
-                               launches=launches[name],
-                               max_abs_err=errs[name], **rows[name])
-                          for name in REPLACES]}
+    # fp32 rows: launches on the O1 path (phase bert); bf16 rows: on the
+    # O2 path (phase bert_o2)
+    record = {"kernels": [
+        dict(name=name + ("" if dt == torch.float32 else "_bf16"),
+             route="cuda", source=SOURCE, replaces=REPLACES[name],
+             launches=launches[dt][name], max_abs_err=errs[name, dt],
+             **rows[dt][name])
+        for dt in (torch.float32, torch.bfloat16) for name in REPLACES]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

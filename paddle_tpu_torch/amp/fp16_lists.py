@@ -1,0 +1,42 @@
+"""AMP op lists: white (run in low precision), black (keep fp32), gray.
+
+Copied from ``paddle_tpu/amp/fp16_lists.py``, over the port's tracer
+lists. Counterpart of the reference's static-graph AMP lists
+(ref: python/paddle/fluid/contrib/mixed_precision/fp16_lists.py) and the
+dygraph allow/block sets (ref: paddle/fluid/imperative/amp_auto_cast.cc:38,42).
+bf16 needs no loss scaling (8-bit exponent); fp16 takes the dynamic
+loss scaling of ``amp.GradScaler``.
+"""
+from ..dygraph.tracer import AMP_BLACK_LIST, AMP_WHITE_LIST
+
+white_list = set(AMP_WHITE_LIST)
+black_list = set(AMP_BLACK_LIST)
+
+# ops that follow their inputs' dtype (neither forced low nor fp32)
+gray_list = {
+    "elementwise_add", "elementwise_sub", "elementwise_mul", "elementwise_div",
+    "relu", "relu6", "leaky_relu", "sigmoid", "tanh", "gelu", "swish",
+    "pool2d", "reshape2", "transpose2", "concat", "split", "slice", "stack",
+    "flatten2", "flatten_contiguous_range", "squeeze2", "unsqueeze2",
+    "dropout", "pad", "pad2d", "pad3d", "scale", "sum", "batch_norm",
+    "expand_v2", "tile", "gather", "where", "cast",
+}
+
+
+class AutoMixedPrecisionLists:
+    """User-tunable white/black lists (ref: fp16_lists.py:AutoMixedPrecisionLists)."""
+
+    def __init__(self, custom_white_list=None, custom_black_list=None,
+                 custom_black_varnames=None):
+        self.white_list = set(white_list)
+        self.black_list = set(black_list)
+        self.gray_list = set(gray_list)
+        self.black_varnames = set(custom_black_varnames or ())
+        for op in custom_white_list or ():
+            self.white_list.add(op)
+            self.black_list.discard(op)
+            self.gray_list.discard(op)
+        for op in custom_black_list or ():
+            self.black_list.add(op)
+            self.white_list.discard(op)
+            self.gray_list.discard(op)

@@ -8,6 +8,13 @@ Layouts are the same in both packages (``Linear`` is ``[in, out]``,
 ``Conv2D`` OIHW in either data format), so no array is transposed. A
 parameter the port shares between names (the tied MLM decoder weight)
 must arrive with equal arrays under every name, and is loaded once.
+bf16 arrays (ml_dtypes' ``bfloat16``, which ``torch.from_numpy`` does
+not take) cross as their bits.
+
+``load_train_state(step, state)`` carries a JAX ``TrainStep.state_dict()``
+(params, optimizer slots, fp32 masters, step) into the port's
+``TrainStep``: the reference keeps a tied weight under each of its names,
+the port under one.
 """
 from __future__ import annotations
 
@@ -17,6 +24,56 @@ import numpy as np
 import torch
 
 from .core.enforce import InvalidArgumentError
+
+
+def to_tensor(arr) -> torch.Tensor:
+    """A numpy (or JAX) array as a CPU tensor of the same dtype and
+    values; bf16 goes across as its 16 bits."""
+    arr = np.array(arr, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _one_per_parameter(group: Dict, aliases: Dict[str, str], what: str):
+    """``group`` without the tied names in ``aliases``, after checking
+    that each carries what its kept name carries."""
+    out = {}
+    for name, value in group.items():
+        keep = aliases.get(name)
+        if keep is None:
+            out[name] = value
+            continue
+        same = (value.keys() == group[keep].keys() and all(
+            np.array_equal(np.asarray(v), np.asarray(group[keep][k]))
+            for k, v in value.items())) if isinstance(value, dict) else \
+            np.array_equal(np.asarray(value), np.asarray(group[keep]))
+        if not same:
+            raise InvalidArgumentError(
+                f"{what}: tied names {keep} and {name} carry different "
+                f"values")
+    return out
+
+
+def load_train_state(step, state: Dict):
+    """Install a JAX ``TrainStep.state_dict()`` into the port's
+    ``TrainStep`` ``step``: params, buffers, optimizer slots and fp32
+    masters by structured name (a tied weight's second name dropped
+    once its values are checked equal), and ``meta.step``."""
+    aliases = step.aliases
+    out = {"meta": {"step": int(np.asarray(
+        (state.get("meta") or {}).get("step", 0)))}}
+    for group in ("params", "buffers", "masters"):
+        if state.get(group):
+            out[group] = {k: to_tensor(v) for k, v in _one_per_parameter(
+                state[group], aliases, group).items()}
+    if state.get("opt_states"):
+        out["opt_states"] = {
+            n: {k: to_tensor(v) for k, v in st.items()}
+            for n, st in _one_per_parameter(
+                state["opt_states"], aliases, "opt_states").items()}
+    step.set_state_dict(out)
+    return step
 
 
 def load_state_dict(model: torch.nn.Module, state: Dict[str, np.ndarray]):
@@ -45,6 +102,6 @@ def load_state_dict(model: torch.nn.Module, state: Dict[str, np.ndarray]):
                         f"tied names {names[0]} and {other} carry "
                         f"different arrays")
             tgt = own[names[0]]
-            tgt.copy_(torch.from_numpy(np.array(first, copy=True)).to(
-                dtype=tgt.dtype, device=tgt.device))
+            tgt.copy_(to_tensor(first).to(dtype=tgt.dtype,
+                                          device=tgt.device))
     return model

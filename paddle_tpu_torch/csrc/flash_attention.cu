@@ -18,8 +18,8 @@
 // other sequence inside the block. That loop replaces the TPU grid's
 // sequential last axis, whose sums were carried across grid steps in VMEM
 // scratch: CUDA blocks run in no order. Tiles are staged in dynamic shared
-// memory as fp32 (bf16 inputs are widened on load); outputs round once to
-// the input type; accumulation is fp32 throughout. No atomics: K2 owns dQ
+// memory as fp32 (bf16 and fp16 inputs are widened on load); outputs round
+// once to the input type; accumulation is fp32 throughout. No atomics: K2 owns dQ
 // rows, K3 owns dK/dV rows, so results are bitwise deterministic.
 //
 // All three kernels run every product on the tensor cores, with fp32
@@ -31,10 +31,12 @@
 //     hi*lo + hi*hi in fp32 (on an H100 at BERT-base, gradients within
 //     about 2e-6 relative of an fp64 reference, against 4e-7 for fp32
 //     FMAs and 5e-4 for plain TF32, hi*hi alone).
-//     bf16 inputs are exact in TF32 (lo = 0): a product of two staged
-//     input tiles (S, dP) takes the hi*hi pass alone, and one whose A is
-//     the fp32 P or dS takes two (lo*hi, hi*hi); K1 rounds P to bf16
-//     before P*V, as the reference does, so both its products take one.
+//     bf16 and fp16 inputs are exact in TF32 (lo = 0: fp16's 10 mantissa
+//     bits are TF32's, and its exponent range lies inside TF32's): a
+//     product of two staged input tiles (S, dP) takes the hi*hi pass
+//     alone, and one whose A is the fp32 P or dS takes two (lo*hi,
+//     hi*hi); K1 rounds P to the input type before P*V, as the reference
+//     does, so both its products take one.
 //     mma.sync and not wgmma: wgmma takes TF32 only K-major, and P*V,
 //     dS*K, P^T*dO and dS^T*Q contract along the sequence.
 //   * A block is 4 warps; each warp owns 16 rows of the 64-row tile (q rows
@@ -87,6 +89,7 @@
 // the rest is the instructions around each mma (scalar fragment loads,
 // softmax and mask arithmetic) and the barriers.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -134,7 +137,7 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four consecutive values of a row (16 bytes of fp32, 8 of bf16) as fp32
+// Four consecutive values of a row (16 bytes of fp32, 8 of bf16 or fp16) as fp32
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -144,6 +147,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -151,10 +160,21 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// x rounded to T's precision, to nearest even, as fp32
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ float round_to(float x, const __half*) {
+  return __half2float(__float2half_rn(x));
+}
 
 // Rows [row0, row0 + ROWS) of head (b, h) into a [ROWS][D+4] fp32 tile;
 // rows at or past `len` are zero. fp32 goes by cp.async (the caller commits
-// and waits); bf16 is widened through registers.
+// and waits); bf16 and fp16 are widened through registers.
 template <typename T, int D, int ROWS>
 __device__ __forceinline__ void stage_tile(float* dst, const T* src, Strides st, int b, int h,
                                            int row0, int len) {
@@ -391,9 +411,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const bool lower = e >= 2;
         float p = exp2f(fmaf(s[j][e], sl2, lower ? -c1 : -c0));
         if (lower) l1 += p; else l0 += p;
-        // bf16: P rounds to V's type before P V, as in the reference (l
-        // sums it unrounded); then it is exact in TF32 and needs no lo pass
-        if constexpr (!X) p = __bfloat162float(__float2bfloat16(p));
+        // bf16, fp16: P rounds to V's type before P V, as in the reference
+        // (l sums it unrounded); then it is exact in TF32 and needs no lo pass
+        if constexpr (!X) p = round_to(p, static_cast<const T*>(nullptr));
         s[j][e] = p;
       }
 #pragma unroll
@@ -760,13 +780,16 @@ cudaError_t occupancy(K kernel, int threads, size_t smem, int rows, int* info) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel, threads, smem);
 }
 
-// dtype 0 = float32, 1 = bfloat16; head dim 64 or 128.
+// dtype 0 = float32, 1 = bfloat16, 2 = float16; head dim 64 or 128.
+// (flash_attention.py pads a smaller head dim with zeros to one of these.)
 template <template <typename, int> class L, typename... X>
 int dispatch(int dtype, int64_t D, const X&... x) {
   if (dtype == 0 && D == 64) return (int)L<float, 64>::run(x...);
   if (dtype == 0 && D == 128) return (int)L<float, 128>::run(x...);
   if (dtype == 1 && D == 64) return (int)L<__nv_bfloat16, 64>::run(x...);
   if (dtype == 1 && D == 128) return (int)L<__nv_bfloat16, 128>::run(x...);
+  if (dtype == 2 && D == 64) return (int)L<__half, 64>::run(x...);
+  if (dtype == 2 && D == 128) return (int)L<__half, 128>::run(x...);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,12 +15,22 @@ Port of ``paddle_tpu/ops/flash_attention.py``. Layout [B, S, H, D].
   launches its kernel or raises. ``<wrapper>.launches`` counts launches.
 - ``FlashAttentionFunction``: the autograd Function (ref ``:451-536``); it
   saves ``(q, k, v, o, lse)`` and nothing of size S x S.
+- ``flash_attention``: the bias-free route to K1-K3. K1-K3 take fp32,
+  bf16 or fp16, head dim 64 or 128, contiguous and 16-byte aligned; a
+  smaller head dim is zero-padded to the next of those (the Pallas
+  kernel takes any head dim), and a view or an unaligned tensor is
+  copied.
+- The ``flash_attention`` op sends its bias and ``q_offset`` routes to
+  the plain version under autograd on any device (``blockwise_route``,
+  as the reference does), everything else to ``flash_attention``.
+  ``blockwise_route.calls`` counts the former beside the wrappers'
+  ``launches``.
 
 Numerics: the plain versions take the score and P·V products in float32
 (the reference's ``preferred_element_type=float32``) and round P to the
 value dtype before P·V as the reference does, and so does K1. K1-K3 run
 every product on the tensor cores in 3xTF32 (fp32 accuracy, no plain
-TF32), and round only their outputs (and K1 its bf16 P).
+TF32), and round only their outputs (and K1 its bf16 or fp16 P).
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ from ..core.registry import register_op
 from . import kernels
 
 NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -121,32 +132,38 @@ def blockwise_attention_backward(q, k, v, o, lse, g, causal: bool,
 # ---------------------------------------------------------------------------
 # Kernel wrappers (K1-K3)
 # ---------------------------------------------------------------------------
-def _check_cuda(q, k, v, *more):
-    """What the kernels take: CUDA, fp32 or bf16 (all one dtype),
-    contiguous [B, S, H, D] with D in {64, 128}."""
+def _refusal(q, k, v, *more):
+    """Why K1-K3 do not take these tensors, the device aside, or None:
+    they take fp32, bf16 or fp16 (all one dtype), contiguous [B, S, H, D]
+    with D in {64, 128}, 16-byte aligned."""
     ts = (q, k, v) + more
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in ts):
-        raise InvalidArgumentError(
-            f"flash kernels take float32 or bfloat16 q/k/v/o/dO of one "
-            f"dtype, got {[t.dtype for t in ts]}")
+        return (f"flash kernels take q/k/v/o/dO of one dtype (float32 or "
+                f"bfloat16, or float16), got {[t.dtype for t in ts]}")
     if any(not t.is_contiguous() for t in ts):
-        raise InvalidArgumentError("flash kernels take contiguous tensors")
+        return "flash kernels take contiguous tensors"
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 or \
             q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
-        raise InvalidArgumentError(
-            f"flash kernels: bad shapes q {tuple(q.shape)}, "
-            f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.shape[3] not in (64, 128):
-        raise InvalidArgumentError(
-            f"flash kernels take head dim 64 or 128, got {q.shape[3]}")
-    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
-        raise InvalidArgumentError(
-            f"flash kernels take tensors on one CUDA device, got "
-            f"{[str(t.device) for t in ts]}")
+        return (f"flash kernels: bad shapes q {tuple(q.shape)}, "
+                f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.shape[3] not in KERNEL_HEAD_DIMS:
+        return f"flash kernels take head dim 64 or 128, got {q.shape[3]}"
     if any(t.data_ptr() % 16 for t in ts):
-        raise InvalidArgumentError(
-            "flash kernels take 16-byte aligned tensors (they copy rows "
-            "16 bytes at a time)")
+        return ("flash kernels take 16-byte aligned tensors (they copy rows "
+                "16 bytes at a time)")
+    return None
+
+
+def _check_cuda(q, k, v, *more):
+    """Raise unless K1-K3 take these tensors on one CUDA device."""
+    ts = (q, k, v) + more
+    reason = _refusal(q, k, v, *more)
+    if reason is None and (q.device.type != "cuda" or
+                           any(t.device != q.device for t in ts)):
+        reason = (f"flash kernels take tensors on one CUDA device, got "
+                  f"{[str(t.device) for t in ts]}")
+    if reason is not None:
+        raise InvalidArgumentError(reason)
 
 
 def _dims(q, k, scale, causal):
@@ -240,13 +257,50 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def blockwise_route(q, k, v, bias=None, causal=False, scale=None,
+                    block_size=512, q_offset=0):
+    """The op's bias and ``q_offset`` route: the plain version under
+    autograd, on any device (the reference's own route: its Pallas kernel
+    is the square, bias-free fast path). Counts its calls."""
+    blockwise_route.calls += 1
+    o, _ = blockwise_attention(q, k, v, bias=bias, causal=causal,
+                               scale=scale, block_size=block_size,
+                               q_offset=q_offset)
+    return o.to(q.dtype)
+
+
+blockwise_route.calls = 0
+
+
+def _kernel_head_dim(d: int) -> int:
+    """The head dim K1-K3 run a head dim ``d`` at: ``d`` itself, or the
+    next of theirs when ``d`` is smaller (zeros pad the rest)."""
+    return next((n for n in KERNEL_HEAD_DIMS if n >= d), d)
+
+
+def _kernel_layout(t, dp: int):
+    """``t`` as K1-K3 read it: head dim zero-padded to ``dp``, contiguous
+    and 16-byte aligned (a copy only where it is not)."""
+    d = t.shape[-1]
+    if d != dp:
+        return torch.nn.functional.pad(t, (0, dp - d))
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, block_size: int = 512):
-    """Fused scaled-dot-product attention, [B, S, H, D] layout."""
+    """Fused scaled-dot-product attention, [B, S, H, D] layout, through
+    K1-K3 on the card. A head dim below 128 that K1-K3 lack is padded
+    with zeros (zero columns add nothing to q k^T, and o's extra columns,
+    zero too, are dropped); a view or an unaligned tensor is copied."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    return FlashAttentionFunction.apply(q, k, v, bool(causal), float(scale),
-                                        int(block_size))
+    dp = _kernel_head_dim(d)
+    q, k, v = (_kernel_layout(t, dp) for t in (q, k, v))
+    o = FlashAttentionFunction.apply(q, k, v, bool(causal), float(scale),
+                                     int(block_size))
+    return o[..., :d] if dp != d else o
 
 
 @register_op("flash_attention")
@@ -254,18 +308,16 @@ def _flash_attention_op(inputs, attrs):
     """Inputs Q/K/V: [B, S, H, D]; optional Bias: [B|1, H|1, Sq, Sk]
     additive attention bias. The bias and KV-cache (``q_offset``) routes
     take the blockwise path, as in the reference (its Pallas kernel is
-    the square, bias-free fast path)."""
+    the square, bias-free fast path); everything else goes to K1-K3."""
     q, k, v = inputs["Q"][0], inputs["K"][0], inputs["V"][0]
     causal = attrs.get("causal", False)
     scale = attrs.get("scale")
     block_size = attrs.get("block_size", 512)
     q_offset = attrs.get("q_offset", 0)
-    if inputs.get("Bias") or q_offset:
-        bias = inputs["Bias"][0] if inputs.get("Bias") else None
-        o, _ = blockwise_attention(q, k, v, bias=bias, causal=causal,
-                                   scale=scale, block_size=block_size,
-                                   q_offset=q_offset)
-        return {"Out": [o.to(q.dtype)]}
+    bias = inputs["Bias"][0] if inputs.get("Bias") else None
+    if bias is not None or q_offset:
+        return {"Out": [blockwise_route(q, k, v, bias, causal, scale,
+                                        block_size, q_offset)]}
     if attrs.get("sp_axis"):
         raise UnimplementedError(
             "flash_attention: sequence parallelism (sp_axis) is not ported")

@@ -61,6 +61,9 @@ def matmul_v2(inputs, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("trans_y", False):
         y = y.transpose(-1, -2)
+    if x.dtype != y.dtype:            # jnp.matmul promotes; torch raises
+        dt = torch.promote_types(x.dtype, y.dtype)
+        x, y = x.to(dt), y.to(dt)
     return {"Out": [torch.matmul(x, y)]}
 
 

@@ -162,3 +162,9 @@ ErnieForPretraining = BertForPretraining
 
 def bert_base(**kw):
     return BertModel(**kw)
+
+
+def ernie_base(**kw):
+    """ERNIE-1.0 base: BERT-base widths over ERNIE's 18,000-token vocab
+    (ref ``paddle_tpu/text/models.py:317-318``)."""
+    return BertModel(vocab_size=kw.pop("vocab_size", 18000), **kw)

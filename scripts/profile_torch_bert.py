@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Where a train step of paddle_tpu_torch spends its time on one CUDA
-card: BERT-base O1 or ResNet-50 O1; or a YOLOv3-416 predict.
+card: BERT-base O1 or O2, or ResNet-50 O1; or a YOLOv3-416 predict.
 
-    python3 scripts/profile_torch_bert.py [--steps 3]
+    python3 scripts/profile_torch_bert.py [--steps 3] [--amp O2]
     python3 scripts/profile_torch_bert.py --model resnet50 --layout NHWC
     python3 scripts/profile_torch_bert.py --model yolov3 [--steps 5]
 
 Builds the step as chip_smoke.py does. BERT: BertForPretraining,
-Momentum 1e-4 / 0.9, TrainStep amp_level="O1", batch 16, seq 128.
+Momentum 1e-4 / 0.9, TrainStep amp_level="O1", batch 16, seq 128; with
+``--amp O2`` as phase ``bert_o2``: amp.decorate (bf16 parameters, fp32
+masters), AdamW with LinearWarmup(PolynomialDecay), ClipGradByGlobalNorm
+(1.0) and weight decay 0.01, and the update (clip, decay, the adamw op,
+the masters' cast) also reported on its own (device ms and launches a
+step).
 ResNet-50: resnet50(num_classes=1000, data_format=--layout),
 cross_entropy, Momentum 0.1 / 0.9, O1, batch 256, 224 px, cudnn.benchmark
 on. Warms up two steps, then traces ``--steps`` steps with torch.profiler
@@ -69,15 +74,27 @@ def _family(name, ops=()):
     return "other"
 
 
-def build_bert(dev):
+UPDATE = "optimizer update"
+
+
+def build_bert(dev, amp_level):
+    from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup, PolynomialDecay
     from paddle_tpu_torch.text.models import BertForPretraining
-    from chip_smoke import make_batch, step_fn
+    from chip_smoke import _o2_opt, make_batch, step_fn
     model = BertForPretraining(dropout=0.0)
-    train = TrainStep(model, step_fn, Momentum(
-        learning_rate=1e-4, momentum=0.9, parameters=model.parameters()),
-        amp_level="O1").ensure_state()
+    if amp_level == "O2":
+        opt = _o2_opt(model, LinearWarmup(PolynomialDecay(1e-4, 1000, 0.0),
+                                          10, 0.0, 1e-4))
+        model, opt = amp.decorate(model, opt, level="O2")
+    else:
+        opt = Momentum(learning_rate=1e-4, momentum=0.9,
+                       parameters=model.parameters())
+    opt.functional_step = _ranged(UPDATE, opt.functional_step)
+    train = TrainStep(model, step_fn, opt,
+                      amp_level=amp_level).ensure_state()
     gen = torch.Generator(device=dev).manual_seed(0)
     return model, train, make_batch(gen, dev, 16, 128, 30522)
 
@@ -233,6 +250,8 @@ def main():
     ap.add_argument("--model", choices=("bert", "resnet50", "yolov3"),
                     default="bert")
     ap.add_argument("--layout", choices=("NHWC", "NCHW"), default="NHWC")
+    ap.add_argument("--amp", choices=("O1", "O2"), default="O1",
+                    help="BERT's AMP level")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_bert: no CUDA device", file=sys.stderr)
@@ -247,9 +266,10 @@ def main():
         return profile_yolov3(dev, args.steps)
     resnet = args.model == "resnet50"
     model, train, batch = (build_resnet(dev, args.layout) if resnet
-                           else build_bert(dev))
+                           else build_bert(dev, args.amp))
     print(f"[profile] {args.model}"
-          + (f" {args.layout}, cudnn.benchmark on" if resnet else ""))
+          + (f" {args.layout}, cudnn.benchmark on" if resnet else
+             f" {args.amp}"))
     for _ in range(2):
         train(*batch)
     torch.cuda.synchronize()
@@ -262,8 +282,11 @@ def main():
             train(*batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the update's record_function range also shows up on the device
+    # timeline, spanning its kernels and the gaps between them
     dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA and
+                  e.name != UPDATE]
     if not dev_events:
         print("profile_torch_bert: the trace holds no device event",
               file=sys.stderr)
@@ -284,6 +307,19 @@ def main():
         by_name[e.name] += dur
         counts[e.name] += 1
     total = sum(by_family.values())
+    update_us, update_n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.kernels:
+            parent = e
+            while parent is not None and parent.name != UPDATE:
+                parent = parent.cpu_parent
+            if parent is not None:
+                update_us += sum(k.duration for k in e.kernels)
+                update_n += len(e.kernels)
+    if not resnet:
+        print(f"[profile] {UPDATE} (clip, decay, op, masters): "
+              f"{update_us / n / 1e3:.3f} ms/step of device time in "
+              f"{update_n / n:.0f} kernels/step")
     print(f"[profile] steps {n}  wall {wall_us / n / 1e3:.3f} ms/step  "
           f"device busy {busy / n / 1e3:.3f} ms/step  idle share "
           f"{1 - busy / wall_us:.3f}  device events "
@@ -298,7 +334,7 @@ def main():
         if _family(name) == FAMILIES[0][0]:
             print(f"[profile] port kernel {us / n / 1e3:.3f} ms/step  "
                   f"x{counts[name] // n}  {us / counts[name]:.1f} us a launch"
-                  f"  {name.split('::')[-1].split('(')[0]}")
+                  f"  {name[:name.index('>(') + 1].split('::')[-1]}")
     if resnet:
         act_numel = max(p.numel() for p in model.parameters())
         found = transforms(prof, act_numel, n)

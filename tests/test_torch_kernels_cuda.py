@@ -9,7 +9,8 @@ check) only, so it runs on a machine without JAX:
 Tolerances: fp32 o, lse and delta at rtol 1e-4 / atol 1e-5 and gradients
 at rtol 2e-3 / atol 3e-4 (both sides hold fp32 accuracy: the kernels in
 3xTF32, and TF32 is off for the plain version's matmuls); bf16 outputs
-round to 8 mantissa bits, so rtol / atol 2e-2; lse is fp32 from the same
+round to 8 mantissa bits, so rtol / atol 2e-2, and fp16 outputs to 11,
+so 4e-3 (a few fp16 ulps of values near 1); lse is fp32 from the same
 widened products in both. Beside the plain version, K1's fp32 o and lse
 and K2/K3's fp32 gradients are held against float64 within bounds that
 the same kernels in plain TF32 fail.
@@ -47,7 +48,8 @@ CASES = [
     (2, 65, 65, 2, 64, False),
 ]
 TOL = {torch.float32: (dict(rtol=1e-4, atol=1e-5), dict(rtol=2e-3, atol=3e-4)),
-       torch.bfloat16: (dict(rtol=2e-2, atol=2e-2), dict(rtol=2e-2, atol=2e-2))}
+       torch.bfloat16: (dict(rtol=2e-2, atol=2e-2), dict(rtol=2e-2, atol=2e-2)),
+       torch.float16: (dict(rtol=4e-3, atol=4e-3), dict(rtol=4e-3, atol=4e-3))}
 
 
 @pytest.fixture
@@ -95,7 +97,8 @@ def _check_against_plain(q, k, v, g, causal, dtype, o_exact=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,sq,sk,h,d,causal", CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_kernels_match_plain(cuda, b, sq, sk, h, d, causal, dtype):
     q, k, v, g = _inputs(cuda, b, sq, sk, h, d, dtype)
     _check_against_plain(q, k, v, g, causal, dtype)
@@ -199,3 +202,28 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     lse = torch.zeros(1, 2, 8, device=cuda)
     with pytest.raises(InvalidArgumentError):
         fa.flash_bwd_dkv(q, q, q, q, lse, lse, False, 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", chip_smoke.FLASH_ROUTE_CASES,
+                         ids=lambda c: c[0].replace(" ", "_"))
+def test_op_feeds_the_kernels_on_the_card(cuda, case):
+    """What K1-K3 take only after the op pads or copies it (head dims 32
+    and 96, a q that is a view with gaps, an unaligned q), and fp16, goes
+    through K1-K3 on the card, each launched once and nothing on the
+    blockwise route, and equals the op on the CPU (at the dtype's bounds
+    above)."""
+    _, b, s, h, d, dtype, layout = case
+    gen = torch.Generator().manual_seed(17)
+    ts = [torch.randn(b, s, h, d, generator=gen).to(dtype)
+          for _ in range(4)]
+    o_tol, g_tol = TOL[dtype]
+    for causal in (False, True):
+        want, cpu_calls, _ = chip_smoke._flash_op(
+            fa, torch.device("cpu"), ts, causal, layout)
+        got, calls, launches = chip_smoke._flash_op(fa, cuda, ts, causal,
+                                                    layout)
+        assert (calls, cpu_calls, launches) == (0, 0, [1, 1, 1])
+        for name, x, y, tol in zip(("o", "dq", "dk", "dv"), got, want,
+                                   (o_tol, g_tol, g_tol, g_tol)):
+            torch.testing.assert_close(x, y, msg=name, **tol)

@@ -19,11 +19,12 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      against float64 (bounds that plain TF32 fails); the same checks
      against the plain versions in fp16; time each kernel at
      BERT-base in fp32 (what O1 feeds it) and in bf16 (what O2 feeds it)
-     with CUDA events beside its bound on the units it runs on (3xTF32
-     on fp32 inputs; on bf16 inputs the TF32 passes it takes) and a
-     yardstick (the fp32 CUDA cores; the bf16 tensor-core rate), its
-     plain version and torch's SDPA in the same dtype (a yardstick only;
-     SDPA's backward stands beside the K2 + K3 pair);
+     with CUDA events beside its bound (on fp32 inputs the 3xTF32 units
+     it runs on, with the fp32 CUDA cores as a yardstick; on bf16 inputs
+     the function's products at the bf16 tensor-core rate, with the TF32
+     passes the kernel runs beside it), its plain version and torch's
+     SDPA in the same dtype (a yardstick only; SDPA's backward stands
+     beside the K2 + K3 pair);
   4. flash_route: the flash_attention op on inputs K1-K3 take only after
      the op pads or copies them (head dims 32 and 96, a strided q, an
      unaligned q) and in fp16, on the card against the CPU: each launches
@@ -80,9 +81,35 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      memory, NmsedNum, conv FLOPs and their bound, one timing with
      cuDNN's TF32 on; the initial statistics' detections equal on the
      card and the CPU. No kernel of the port's own: cuDNN and torch's.
+  14. gpt_kernels (beside phase 3): K1-K3 at GPT-3 1.3B's shape (B4 S2048
+     H16 D128, causal, bf16) against their plain versions, K2/K3's
+     gradients by relative Frobenius error against the plain backward in
+     fp32 (a bound that the same backward with its last key tile left
+     out fails), bitwise determinism, blocks per SM and waves, CUDA-event
+     times beside their bound over the causal triangle, and SDPA's bf16
+     causal forward and backward;
+  15. gpt_tiny: gpt_tiny from seed-0 weights on the card against the CPU,
+     dense and with moe=True, num_experts=4: two O0 AdamW steps and three
+     O2 bf16 steps (fp32 masters, warm-up and cosine, clip, decay):
+     losses, aux losses and the parameters after the steps; then a cached
+     decode on the card (prompt 16, 8 single-token steps) against the
+     uncached forward;
+  16. gpt_cache: GPT-3 1.3B (gpt3_1p3b) from seed 0 in fp32, eval(), batch
+     1: a 128-token prompt through the blocks with a Cache (K1 once a
+     layer), then 16 single-token steps (the q_offset route once a layer
+     a step), against the uncached forward over all 144 tokens;
+  17. gpt_o2, the main path of the GPT slice: that model at AMP O2 bf16
+     (amp.decorate, fp32 masters, AdamW 0.9 / 0.95 with weight decay 0.1,
+     GPT-3's warm-up and cosine schedule, ClipGradByGlobalNorm(1.0)),
+     micro-batch 4 at seq 2048, 2 warm-up and 3 timed steps: losses near
+     ln(50257), step time, samples/s, tokens/s, MFU, peak memory,
+     launches, host syncs and device busy of one profiled step; K1-K3
+     launched 24 times a step each on bf16 inputs, nothing on the
+     blockwise route, the parameters bf16 and the masters fp32 and moved.
 The last two lines are the kernels' JSON record (each kernel at fp32,
-its launches from phase 7, and as <name>_bf16 at bf16, its launches
-from phase 8) and {"ok": true, "device": {...}}.
+its launches from phase 7; as <name>_bf16 at bf16, its launches from
+phase 8; as <name>_gpt at GPT-3 1.3B's shape, its launches from phase
+17) and {"ok": true, "device": {...}}.
 """
 import collections
 import contextlib
@@ -208,19 +235,25 @@ def cuda_ms(fn, n=20):
     return start.elapsed_time(end) / n
 
 
-def bound(kernel, b, s, h, d, dtype, peak_ops=PEAK_OPS_S):
+def causal_pairs(s, causal):
+    """(query, key) pairs the scores need: s * s, or the s (s + 1) / 2 on
+    and below the diagonal when causal."""
+    return s * (s + 1) / 2 if causal else s * s
+
+
+def bound(kernel, b, s, h, d, dtype, peak_ops=PEAK_OPS_S, causal=False):
     """Least time for the work: bytes (each input read once, each output
     written once) over the memory rate, operations over the peak rate of
     the input type in ``peak_ops`` (the fp32 CUDA cores by default,
-    PEAK_TC_OPS_S for the tensor cores); returns (ms, "bytes" |
-    "operations")."""
+    PEAK_TC_OPS_S for the tensor cores), the causal triangle's only when
+    causal; returns (ms, "bytes" | "operations")."""
     el = torch.finfo(dtype).bits // 8
     t = b * s * h * d * el                       # one [B, S, H, D] tensor
     r = b * h * s * 4                            # one [B, H, S] fp32 row
     n_bytes, mm = {"flash_fwd": (4 * t + r, 2),  # q k v -> o, lse
                    "flash_bwd_dq": (6 * t + 2 * r, 3),  # q k v o dO lse -> dq delta
                    "flash_bwd_dkv": (6 * t + 2 * r, 4)}[kernel]  # q k v dO lse delta -> dk dv
-    ops = 2 * mm * b * h * s * s * d             # mm products of [S,S,D]
+    ops = 2 * mm * b * h * causal_pairs(s, causal) * d  # mm products
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = ops / peak_ops[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -308,6 +341,33 @@ def phase_build(kernels):
                   f"{grid / (blocks * sms):.3f} waves")
 
 
+def kernels_against_plain(fa, q, k, v, g, causal, dtype):
+    """K1, K2 and K3 through their wrappers against the plain versions on
+    the same inputs, at ``TOL[dtype]``. Returns the largest error of each
+    wrapper and the plain versions' (o, dq, dk, dv)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    tol = TOL[dtype]
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    o_r, lse_r = fa.blockwise_attention(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    errs = {"flash_fwd": max(err_of(o, o_r, *tol["o"], "o"),
+                             err_of(lse, lse_r, *LSE_TOL, "lse"))}
+    # kernels first: their outputs cannot reuse a freed buffer that
+    # already holds the plain version's answer
+    o_r = o_r.to(dtype)
+    dq, delta = fa.flash_bwd_dq(q, k, v, o_r, g, lse_r, causal, scale)
+    delta_r = torch.einsum("bqhd,bqhd->bhq", g.float(), o_r.float())
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse_r, delta_r, causal, scale)
+    dq_r, dk_r, dv_r, _ = fa.blockwise_attention_backward(
+        q, k, v, o_r, lse_r, g, causal, scale)
+    torch.cuda.synchronize()
+    errs["flash_bwd_dq"] = max(err_of(delta, delta_r, *tol["o"], "delta"),
+                               err_of(dq, dq_r, *tol["grad"], "dq"))
+    errs["flash_bwd_dkv"] = max(err_of(dk, dk_r, *tol["grad"], "dk"),
+                                err_of(dv, dv_r, *tol["grad"], "dv"))
+    return errs, (o_r, dq_r, dk_r, dv_r)
+
+
 def phase_kernels(fa, dev):
     """Returns the largest error of each kernel by (wrapper, dtype)."""
     errs = {(w.__name__, dt): 0.0 for w in fa.WRAPPERS for dt in CHECKED}
@@ -316,45 +376,22 @@ def phase_kernels(fa, dev):
             gen = torch.Generator(device=dev).manual_seed(b * sq + sk + h + d)
             q, k, v, g = (torch.randn(b, n, h, d, generator=gen, device=dev)
                           .to(dtype) for n in (sq, sk, sk, sq))
-            scale = 1.0 / math.sqrt(d)
             tol = TOL[dtype]
             print(f"[check] B{b} Sq{sq} Sk{sk} H{h} D{d} causal={causal} "
                   f"{str(dtype).split('.')[-1]}")
-            o, lse = fa.flash_fwd(q, k, v, causal, scale)
-            o_r, lse_r = fa.blockwise_attention(q, k, v, causal=causal,
-                                                scale=scale)
-            torch.cuda.synchronize()
-            e = err_of(o, o_r, *tol["o"], "o")
-            e = max(e, err_of(lse, lse_r, *LSE_TOL, "lse"))
-            errs["flash_fwd", dtype] = max(errs["flash_fwd", dtype], e)
-            # kernels first: their outputs cannot reuse a freed buffer that
-            # already holds the plain version's answer
-            o_r = o_r.to(dtype)
-            dq, delta = fa.flash_bwd_dq(q, k, v, o_r, g, lse_r, causal,
-                                        scale)
-            delta_r = torch.einsum("bqhd,bqhd->bhq", g.float(), o_r.float())
-            dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse_r, delta_r, causal,
-                                      scale)
-            dq_r, dk_r, dv_r, _ = fa.blockwise_attention_backward(
-                q, k, v, o_r, lse_r, g, causal, scale)
-            torch.cuda.synchronize()
-            e = err_of(delta, delta_r, *tol["o"], "delta")
-            e = max(e, err_of(dq, dq_r, *tol["grad"], "dq"))
-            errs["flash_bwd_dq", dtype] = max(errs["flash_bwd_dq", dtype], e)
-            e = max(err_of(dk, dk_r, *tol["grad"], "dk"),
-                    err_of(dv, dv_r, *tol["grad"], "dv"))
-            errs["flash_bwd_dkv", dtype] = max(errs["flash_bwd_dkv", dtype],
-                                               e)
+            found, want = kernels_against_plain(fa, q, k, v, g, causal, dtype)
+            for name, e in found.items():
+                errs[name, dtype] = max(errs[name, dtype], e)
             # the autograd Function end to end (K1, then K2 and K3)
             qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
             out = fa.flash_attention(qa, ka, va, causal=causal)
             out.backward(g)
             torch.cuda.synchronize()
-            err_of(out, o_r, *tol["o"], "fn.o")
-            for name, got, want in (("fn.dq", qa.grad, dq_r),
-                                    ("fn.dk", ka.grad, dk_r),
-                                    ("fn.dv", va.grad, dv_r)):
-                err_of(got, want, *tol["grad"], name)
+            for name, got, ref in zip(("fn.o", "fn.dq", "fn.dk", "fn.dv"),
+                                      (out, qa.grad, ka.grad, va.grad),
+                                      want):
+                err_of(got, ref, *tol["o" if name == "fn.o" else "grad"],
+                       name)
     return errs
 
 
@@ -449,22 +486,25 @@ def phase_fp64(fa, dev):
         check(not bad, f"K1-K3 against float64 at q*{q_mul:g}: {errs}")
 
 
-def bound_tf32_passes(kernel, b, s, h, d):
+def bound_tf32_passes(kernel, b, s, h, d, causal=False):
     """K1-K3's own bound on bf16 inputs: bytes at 2 an element against
     the TF32 passes they run on them (flash_attention.cu:21-40: a product
     of two staged bf16 tiles is exact in TF32 and takes one pass, one
     whose A is the fp32 P or dS takes two, and K1 rounds P to bf16)."""
     t_bytes, _ = bound(kernel, b, s, h, d, torch.bfloat16,
                        {torch.bfloat16: math.inf})
-    t_ops = TF32_PASSES_BF16[kernel] * 2 * b * h * s * s * d / 495e12 * 1e3
+    t_ops = (TF32_PASSES_BF16[kernel] * 2 * b * h * causal_pairs(s, causal)
+             * d / 495e12 * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(fa, dev, dtype):
-    """K1-K3 at BERT-base in ``dtype`` (fp32, what O1 feeds them; bf16,
-    what O2 feeds them): CUDA events beside their own bound, a yardstick
-    bound, their plain versions and SDPA in the same dtype."""
-    b, s, h, d, causal = BERT_SHAPE
+def phase_timing(fa, dev, dtype, shape=BERT_SHAPE, n=20):
+    """K1-K3 at ``shape`` (B, S, H, D, causal; BERT-base unless given) in
+    ``dtype`` (fp32, what O1 feeds them; bf16, what O2 feeds them): CUDA
+    events (means of ``n`` calls) beside their bound, a second bound
+    (fp32: the CUDA cores; bf16: the TF32 passes the kernels run), their
+    plain versions and SDPA in the same dtype."""
+    b, s, h, d, causal = shape
     gen = torch.Generator(device=dev).manual_seed(7)
     q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
                   .to(dtype) for _ in range(4))
@@ -472,59 +512,65 @@ def phase_timing(fa, dev, dtype):
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     _, delta = fa.flash_bwd_dq(q, k, v, o, g, lse, causal, scale)
     plain_fwd = cuda_ms(lambda: fa.blockwise_attention(
-        q, k, v, causal=causal, scale=scale))
+        q, k, v, causal=causal, scale=scale), n)
     plain_bwd = cuda_ms(lambda: fa.blockwise_attention_backward(
-        q, k, v, o, lse, g, causal, scale))
+        q, k, v, o, lse, g, causal, scale), n)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+    sdpa_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), n)
     qr, kr, vr = (t.detach().requires_grad_() for t in (qt, kt, vt))
     out = sdpa(qr, kr, vr, is_causal=causal)
     gt = g.transpose(1, 2)
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-        out, (qr, kr, vr), gt, retain_graph=True))
+        out, (qr, kr, vr), gt, retain_graph=True), n)
 
     def pair():
         _, delta_ = fa.flash_bwd_dq(q, k, v, o, g, lse, causal, scale)
         fa.flash_bwd_dkv(q, k, v, g, lse, delta_, causal, scale)
 
     timed = {
-        "flash_fwd": (cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
-                      plain_fwd, sdpa_fwd),
+        "flash_fwd": (cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale),
+                              n), plain_fwd, sdpa_fwd),
         "flash_bwd_dq": (cuda_ms(lambda: fa.flash_bwd_dq(
-            q, k, v, o, g, lse, causal, scale)), plain_bwd, sdpa_bwd),
+            q, k, v, o, g, lse, causal, scale), n), plain_bwd, sdpa_bwd),
         "flash_bwd_dkv": (cuda_ms(lambda: fa.flash_bwd_dkv(
-            q, k, v, g, lse, delta, causal, scale)), plain_bwd, sdpa_bwd),
+            q, k, v, g, lse, delta, causal, scale), n), plain_bwd,
+            sdpa_bwd),
     }
-    pair_ms = cuda_ms(pair)
+    pair_ms = cuda_ms(pair, n)
     dname = str(dtype).split(".")[-1]
     rows = {}
+    shape_of = f"B{b} S{s} H{h} D{d}" + (" causal" if causal else "")
     for name, (ms, plain_ms, lib_ms) in timed.items():
         if dtype == torch.float32:
             units, peak = UNITS[name]
-            bound_ms, bound_by = bound(name, b, s, h, d, dtype, peak)
+            bound_ms, bound_by = bound(name, b, s, h, d, dtype, peak, causal)
             # the fp32 yardstick keeps shares comparable with the
             # CUDA-core kernels of before
             yard = "bound_fp32_cores"
+            y_ms, y_by = bound(name, b, s, h, d, dtype, causal=causal)
         else:
-            units = "tensor cores, TF32 passes on bf16 inputs"
-            bound_ms, bound_by = bound_tf32_passes(name, b, s, h, d)
-            # what the bf16 tensor-core rate (989 TFLOP/s) would allow
-            yard = "bound_bf16_tensor_cores"
-        y_ms, y_by = bound(name, b, s, h, d, dtype)
+            # the function's own products at the bf16 tensor-core rate
+            units = "tensor cores, bf16 rate"
+            bound_ms, bound_by = bound(name, b, s, h, d, dtype,
+                                       causal=causal)
+            # the TF32 passes the kernels run on bf16 inputs
+            yard = "bound_tf32_passes"
+            y_ms, y_by = bound_tf32_passes(name, b, s, h, d, causal)
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": lib_ms,
-                      "dtype": dname, "bound_units": units,
+                      "dtype": dname, "shape": shape_of, "bound_units": units,
                       yard + "_ms": y_ms, yard + "_by": y_by}
         if name != "flash_fwd":
             rows[name]["library_covers"] = PAIR
-        print(f"[time] {dname} {name:<14} {ms:.4f} ms  bound "
+        print(f"[time] {shape_of} {dname} {name:<14} {ms:.4f} ms  bound "
               f"{bound_ms:.4f} ms ({bound_by}, {units}; "
               f"{bound_ms / ms:.1%})  {yard} {y_ms:.4f} ms ({y_by}; "
               f"{y_ms / ms:.1%})  plain {plain_ms:.4f} ms  library "
               f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-    print(f"[time] {dname} K2 + K3 pair {pair_ms:.4f} ms against SDPA "
-          f"backward (dq, dk, dv in one call) {sdpa_bwd:.4f} ms: "
+    print(f"[time] {shape_of} {dname} K2 + K3 pair {pair_ms:.4f} ms "
+          f"against SDPA backward (dq, dk, dv in one call) "
+          f"{sdpa_bwd:.4f} ms: "
           f"{pair_ms / sdpa_bwd:.3f}x; K1 against SDPA forward "
           f"{timed['flash_fwd'][0] / sdpa_fwd:.3f}x; the plain backward "
           f"above computes all three")
@@ -730,10 +776,11 @@ O2_LOSS_TOL = (4e-3, 1e-5)
 ZERO_GRAD = ".self_attn.k_bias"
 
 
-def o2_update_errors(got, want, start):
-    """(worst name, worst, median) of update_error over the masters."""
+def o2_update_errors(got, want, start, zero_grad=ZERO_GRAD):
+    """(worst name, worst, median) of update_error over the masters, the
+    key biases (exact gradient 0) left out."""
     errs = {n: update_error(got[n], want[n], start[n]) for n in want
-            if not n.endswith(ZERO_GRAD)}
+            if not n.endswith(zero_grad)}
     worst = max(errs, key=errs.get)
     return worst, errs[worst], sorted(errs.values())[len(errs) // 2]
 
@@ -1708,6 +1755,438 @@ def phase_yolov3(tpt, dev):
           "YOLOv3-416 detections on the card disagree with the CPU")
 
 
+# ---------------------------------------------------------------------------
+# GPT: gpt_tiny card against CPU, GPT-3 1.3B's cached decode and its O2
+# pretraining step, and K1-K3 at its shape
+# ---------------------------------------------------------------------------
+GPT_ZERO_GRAD = ".attn.k_bias"
+GPT_TINY = dict(batch=2, seq=64, vocab=1024, lr=1e-3, prompt=16, decode=8)
+# gpt_tiny O0 card against CPU (fp32, TF32 off): the masters' update
+# error by its norm, as resnet_tiny and O1 hold theirs (AdamW scales a
+# gradient element that is rounding noise to about lr)
+GPT_O0_UPDATE_TOL = 2.0 ** -5
+# losses (and the MoE aux losses) card against CPU at O0: fp32 sums in
+# other orders
+GPT_O0_LOSS_TOL = (1e-4, 1e-5)
+# GPT-3 XL, "GPT-3 1.3B" (Brown et al. 2020, Table 2.1 and Appendix B):
+# lr 2e-4, linear warm-up over 375M tokens, cosine decay to 10% over
+# 260B tokens, Adam beta 0.9 / 0.95, eps 1e-8, weight decay 0.1, clip
+# 1.0; here at micro-batch 4 x 2048 = 8,192 tokens a step
+GPT3 = dict(batch=4, seq=2048, vocab=50257, lr=2e-4, warmup=2, steps=3,
+            prompt=128, decode=16)
+GPT3_TOKENS = GPT3["batch"] * GPT3["seq"]
+GPT3_WARMUP_STEPS = int(375e6 // GPT3_TOKENS)
+GPT3_DECAY_STEPS = int(260e9 // GPT3_TOKENS)
+# cached against uncached logits of GPT-3 1.3B in fp32 (TF32 off), over
+# the largest logit: the two sum in other orders (the decode's fp32
+# einsums against K1's 3xTF32, about 1e-6 of float64 either way; cuBLAS
+# at M = 1 against M = 144) through 24 layers, where a wrong position,
+# offset or cache moves a logit by O(1) of the largest
+GPT_CACHE_TOL = 1e-4
+GPT_SHAPE = (4, 2048, 16, 128, True)       # B, S, H, D, causal
+# K2/K3's bf16 dq, dk and dv against the plain backward in fp32 on the
+# same inputs, by relative Frobenius error, at GPT's shape (the
+# elementwise 2e-2 of TOL is half a typical gradient element there).
+# Rounding the fp32 answer to bf16 (8 significant bits) alone reads
+# 1.65e-3. The control, the same backward with the last DROPPED_KEYS
+# keys left out (a missing key tile: the last one carries the least of
+# the gradients' norm, so an earlier one reads more), reads 9e-3 to
+# 1.0e-2 (both on the CPU at B1 H2, seeds 11 and 23) and must fail the
+# bound, which lies between the two.
+GRAD_FROB_BOUND = 4e-3
+DROPPED_KEYS = 64
+
+
+def gpt_step_fn(m, ids):
+    return m(ids, labels=ids)[1]
+
+
+def gpt_cached_logits(model, ids, prompt):
+    """Logits [B, S, V] of a cached decode through the blocks: the first
+    ``prompt`` ids at once with fresh caches, then one id at a time
+    (positions made on the device)."""
+    from paddle_tpu_torch.dygraph.tracer import trace_op
+    gpt = model.gpt
+    caches = [blk.attn.Cache(k=None, v=None) for blk in gpt.blocks]
+    pos = torch.arange(ids.shape[1], device=ids.device).expand(ids.shape)
+    spans = [(0, prompt)] + [(t, t + 1) for t in range(prompt,
+                                                       ids.shape[1])]
+    outs = []
+    for a, b in spans:
+        x = gpt.wte(ids[:, a:b]) + gpt.wpe(pos[:, a:b])
+        for i, blk in enumerate(gpt.blocks):
+            x, caches[i] = blk(x, cache=caches[i])
+        outs.append(trace_op("matmul_v2", {"X": [gpt.ln_f(x)],
+                                           "Y": [gpt.wte.weight]},
+                             {"trans_y": True}, out_slots=["Out"])[0])
+    return torch.cat(outs, 1)
+
+
+def gpt3_schedule(lr_mod, peak=GPT3["lr"]):
+    """GPT-3's schedule at this step size: linear warm-up from 0, then
+    cosine decay to 10% of the peak."""
+    return lr_mod.LinearWarmup(
+        lr_mod.CosineAnnealingDecay(peak, GPT3_DECAY_STEPS, peak / 10),
+        GPT3_WARMUP_STEPS, 0.0, peak)
+
+
+def gpt_opt(model, learning_rate, clip=1.0):
+    """GPT-3's AdamW: beta 0.9 / 0.95, eps 1e-8, weight decay 0.1, and a
+    global-norm clip unless ``clip`` is None."""
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    return AdamW(learning_rate=learning_rate, beta1=0.9, beta2=0.95,
+                 epsilon=1e-8, weight_decay=0.1,
+                 grad_clip=ClipGradByGlobalNorm(clip) if clip else None,
+                 parameters=model.parameters())
+
+
+def _gpt_tiny_run(tpt, fa, device, state, ids, kw, level, steps):
+    """gpt_tiny from ``state`` through TrainStep at ``level``: AdamW at
+    lr 1e-3 (O0), or at O2 with GPT-3's schedule shape (warm-up 2,
+    cosine to 10% over 10) and the clip. Returns the losses, the MoE aux losses of each step,
+    the fp32 values after the steps (masters at O2) on the CPU, and the
+    flash routes taken."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import load_state_dict
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import lr
+    from paddle_tpu_torch.text import gpt_tiny
+    tpt.set_device(device)
+    model = load_state_dict(gpt_tiny(**kw), state)
+    if level == "O2":
+        sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, 10, 1e-4), 2,
+                                0.0, 1e-3)
+        model, opt = amp.decorate(model, gpt_opt(model, sched), level="O2")
+    else:
+        opt = gpt_opt(model, GPT_TINY["lr"], clip=None)
+    step = TrainStep(model, gpt_step_fn, opt, amp_level=level)
+    calls = fa.blockwise_route.calls
+    launches = [w.launches for w in fa.WRAPPERS]
+    losses, auxes = [], []
+    with op_dtypes() as seen:
+        for _ in range(steps):
+            losses.append(float(step(ids)))
+            auxes.append([float(a.detach())
+                          for a in model.gpt.aux_losses()])
+            if level == "O2":
+                sched.step()
+    if level == "O2":
+        check(all(p.dtype == torch.bfloat16 for p in model.parameters())
+              and all(m.dtype == torch.float32
+                      for m in step._masters.values()),
+              "O2: parameters not bf16 or masters not fp32")
+        final = {n: m.cpu() for n, m in step._masters.items()}
+    else:
+        final = {n: p.detach().cpu() for n, p in step._params.items()}
+    return (losses, auxes, final, fa.blockwise_route.calls - calls,
+            [w.launches - n for w, n in zip(fa.WRAPPERS, launches)], seen)
+
+
+def phase_gpt_tiny(tpt, fa, dev):
+    """gpt_tiny (head dim 32, 2 layers) from seed-0 weights on the card
+    against the CPU: two O0 AdamW steps and three O2 bf16 steps (fp32
+    masters, schedule, clip, decay), dense and with moe=True,
+    num_experts=4; then a cached decode on the card against its uncached
+    forward."""
+    from paddle_tpu_torch.dygraph import no_grad
+    from paddle_tpu_torch.text import gpt_tiny
+    b, s, vocab = GPT_TINY["batch"], GPT_TINY["seq"], GPT_TINY["vocab"]
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, vocab, (b, s), generator=gen, dtype=torch.int32)
+    for kw in ({}, {"moe": True, "num_experts": 4}):
+        tpt.set_device("cpu")
+        tpt.seed(0)
+        state = {k: v.numpy().copy() for k, v in
+                 gpt_tiny(**kw).state_dict().items()}
+        start = {k: torch.from_numpy(v) for k, v in state.items()}
+        name = "moe" if kw else "dense"
+        for level, steps in (("O0", 2), ("O2", 3)):
+            cpu = _gpt_tiny_run(tpt, fa, "cpu", state, ids, kw, level,
+                                steps)
+            card = _gpt_tiny_run(tpt, fa, dev, state, ids.to(dev), kw,
+                                 level, steps)
+            losses, auxes, final, calls, launches, seen = card
+            dname = "bfloat16" if level == "O2" else "float32"
+            print(f"[gpt_tiny] {name} {level}: losses card {losses} cpu "
+                  f"{cpu[0]}; aux losses card {auxes} cpu {cpu[1]}; K1-K3 "
+                  f"launches {launches}, flash op q/k/v dtypes "
+                  f"{dict(seen)}, blockwise-route calls {calls}")
+            check(launches == [2 * steps] * 3 and calls == 0 and
+                  dict(seen) == {(dname,) * 3: 2 * steps},
+                  f"gpt_tiny {name} {level}: K1-K3 not launched on "
+                  f"{dname} inputs every layer")
+            tol = O2_LOSS_TOL if level == "O2" else GPT_O0_LOSS_TOL
+            err_of(torch.tensor(losses), torch.tensor(cpu[0]), *tol, "loss")
+            if kw:
+                check(all(len(a) == 2 for a in auxes), "no aux losses")
+                err_of(torch.tensor(auxes), torch.tensor(cpu[1]), *tol,
+                       "aux")
+            limit = O2_UPDATE_TOL if level == "O2" else GPT_O0_UPDATE_TOL
+            # O2's masters start from the bf16-rounded weights
+            base = {k: v.to(torch.bfloat16).float() if level == "O2"
+                    else v for k, v in start.items()}
+            worst, err, median = o2_update_errors(final, cpu[2], base,
+                                                  GPT_ZERO_GRAD)
+            print(f"[gpt_tiny] {name} {level}: update error card against "
+                  f"CPU worst {err:.3e} ({worst}), median {median:.3e} "
+                  f"(bound {limit:g})")
+            check(err <= limit, f"gpt_tiny {name} {level} disagrees: "
+                  f"{worst}")
+    # the cached decode on the card equals the uncached forward there
+    tpt.set_device(dev)
+    tpt.seed(0)
+    model = gpt_tiny().eval()
+    n = GPT_TINY["prompt"] + GPT_TINY["decode"]
+    card_ids = ids[:, :n].to(dev)
+    calls = fa.blockwise_route.calls
+    with no_grad():
+        cached = gpt_cached_logits(model, card_ids, GPT_TINY["prompt"])
+        full = model(card_ids)
+    torch.cuda.synchronize()
+    calls = fa.blockwise_route.calls - calls
+    print(f"[gpt_tiny] cached decode: prompt {GPT_TINY['prompt']}, then "
+          f"{GPT_TINY['decode']} steps; blockwise-route calls {calls}")
+    check(calls == GPT_TINY["decode"] * 2, "the decode steps did not take "
+          "the q_offset route once a layer")
+    err_of(cached, full, 1e-4, 1e-5, "cache")
+
+
+def phase_gpt_cache(tpt, fa, dev):
+    """GPT-3 1.3B from seed 0 in fp32, eval(), batch 1: a 128-token prompt
+    through the blocks with fresh caches (K1 once a layer), then 16
+    single-token steps (the q_offset route once a layer a step), against
+    the uncached forward over all 144 tokens. Returns the model."""
+    from paddle_tpu_torch.dygraph import no_grad
+    from paddle_tpu_torch.text import gpt3_1p3b
+    tpt.set_device(dev)
+    tpt.seed(0)
+    t0 = time.perf_counter()
+    model = gpt3_1p3b(vocab_size=GPT3["vocab"]).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    layers = len(model.gpt.blocks)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompt, decode = GPT3["prompt"], GPT3["decode"]
+    ids = torch.randint(0, GPT3["vocab"], (1, prompt + decode),
+                        generator=gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"[gpt_cache] GPT-3 1.3B, {n_params} parameters in "
+          f"{len(list(model.parameters()))} tensors, fp32, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    fa.flash_fwd.launches = 0
+    fa.blockwise_route.calls = 0
+    with no_grad():
+        t0 = time.perf_counter()
+        cached = gpt_cached_logits(model, ids, prompt)
+        torch.cuda.synchronize()
+        cached_s = time.perf_counter() - t0
+        k1, calls = fa.flash_fwd.launches, fa.blockwise_route.calls
+        full = model(ids)
+    torch.cuda.synchronize()
+    top = full.abs().max().item()
+    print(f"[gpt_cache] prompt {prompt} then {decode} single-token steps in "
+          f"{cached_s * 1e3:.1f} ms ({cached_s / (decode + 1) * 1e3:.2f} ms "
+          f"a call of the blocks); K1 launches {k1} (expected {layers}), "
+          f"blockwise-route calls {calls} (expected {decode * layers}); "
+          f"largest |logit| {top:.4f}")
+    check(k1 == layers and calls == decode * layers,
+          "the prefill or the decode took the wrong route")
+    for what, sl in (("prompt", slice(0, prompt)),
+                     ("decode", slice(prompt, None))):
+        err_of(cached[:, sl], full[:, sl], GPT_CACHE_TOL,
+               GPT_CACHE_TOL * top, what)
+    check(bool(torch.isfinite(full).all()) and
+          full.shape == (1, prompt + decode, GPT3["vocab"]), "bad logits")
+    return model
+
+
+def gpt_matmul_params(model):
+    """Parameters that enter a matmul a token: every weight of the
+    blocks (not the LayerNorms and biases) and the tied LM head."""
+    blocks = sum(p.numel() for n, p in model.named_parameters()
+                 if n.endswith("weight") and p.ndim >= 2 and ".blocks." in n)
+    return blocks + model.gpt.wte.weight.numel()
+
+
+def gpt_attention_flops(layers, b, s, d_model):
+    """Attention's model FLOPs a training step: QK^T and PV (2 products
+    of 2 B S^2 d each) over the causal half, times 3 (forward and
+    backward)."""
+    return 3 * 2 * 2 * b * causal_pairs(s, True) * d_model * layers
+
+
+def phase_gpt_o2(tpt, fa, dev, model):
+    """The main path of this slice: GPT-3 1.3B pretraining at AMP O2 bf16
+    through amp.decorate and TrainStep(amp_level="O2"), fp32 masters,
+    AdamW (beta 0.9 / 0.95, eps 1e-8, weight decay 0.1) with GPT-3's
+    warm-up and cosine schedule, ClipGradByGlobalNorm(1.0), micro-batch 4
+    at seq 2048."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import lr
+    b, s, vocab = GPT3["batch"], GPT3["seq"], GPT3["vocab"]
+    warmup, steps = GPT3["warmup"], GPT3["steps"]
+    layers = len(model.gpt.blocks)
+    model.train()
+    sched = gpt3_schedule(lr)
+    model, opt = amp.decorate(model, gpt_opt(model, sched), level="O2")
+    train = TrainStep(model, gpt_step_fn, opt, amp_level="O2").ensure_state()
+    start = {n: m.cpu() for n, m in train._masters.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [torch.randint(0, vocab, (b, s), generator=gen, device=dev,
+                             dtype=torch.int32) for _ in range(2)]
+    n_mm = gpt_matmul_params(model)
+    attn = gpt_attention_flops(layers, b, s, model.gpt.d_model)
+    torch.cuda.synchronize()
+    print(f"[gpt_o2] GPT-3 1.3B O2 bf16, {len(start)} fp32 masters; "
+          f"{n_mm} matmul parameters (LM head included); warm-up "
+          f"{GPT3_WARMUP_STEPS} steps, cosine to 10% over "
+          f"{GPT3_DECAY_STEPS}")
+    torch.cuda.reset_peak_memory_stats()
+    for w in fa.WRAPPERS:
+        w.launches = 0
+    fa.blockwise_route.calls = 0
+    with op_dtypes() as seen:
+        losses = []
+        for i in range(warmup):
+            losses.append(float(train(batches[i % 2])))
+            sched.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = []
+        for i in range(steps):
+            out.append(train(batches[(warmup + i) % 2]))
+            sched.step()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / steps
+    launches = {w.__name__: w.launches for w in fa.WRAPPERS}
+    calls = fa.blockwise_route.calls
+    losses += [float(x) for x in out]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_call(lambda: train(batches[0]))
+    sched.step()
+    n_steps = warmup + steps
+    unmoved = [n for n, m in train._masters.items()
+               if torch.equal(m.cpu(), start[n])]
+    tokens_s = GPT3_TOKENS / step_s
+    mfu = 6 * n_mm * tokens_s / PEAK_OPS_S[torch.bfloat16]
+    mfu_attn = (6 * n_mm * GPT3_TOKENS + attn) / step_s / \
+        PEAK_OPS_S[torch.bfloat16]
+    print(f"[gpt_o2] losses {losses} (ln {vocab} = {math.log(vocab):.3f})")
+    print(f"[gpt_o2] step_ms {step_s * 1e3:.3f}  samples/s {b / step_s:.3f}"
+          f"  tokens/s {tokens_s:.1f}  peak_mem {peak:.3f} GiB")
+    print(f"[gpt_o2] MFU {mfu:.4f} = 6 x {n_mm} x tokens/s / 989e12; with "
+          f"attention {mfu_attn:.4f} = (6 x {n_mm} x {GPT3_TOKENS} + "
+          f"{attn:.4e} attention FLOPs a step) / step time / 989e12")
+    print(f"[gpt_o2] one profiled step: {prof['launches']} kernel launches, "
+          f"{prof['syncs']} host syncs (cudaStreamSynchronize), device busy "
+          f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms (idle share "
+          f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f})")
+    print(f"[gpt_o2] device ms by op: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(prof["by_op_ms"].items(),
+                                          key=lambda kv: -kv[1])[:12]))
+    print(f"[gpt_o2] CUDA runtime calls: " + ", ".join(
+        f"{k} {v}" for k, v in prof["runtime"].most_common(8)))
+    print(f"[gpt_o2] launches over {n_steps} steps: {launches} (expected "
+          f"{layers * n_steps} each); flash op q/k/v dtypes {dict(seen)}; "
+          f"blockwise-route calls {calls}; masters moved "
+          f"{len(start) - len(unmoved)} of {len(start)}, unmoved {unmoved}")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    check(abs(losses[0] - math.log(vocab)) < 1.0,
+          "first loss far from ln(vocab)")
+    for name, n in launches.items():
+        check(n == layers * n_steps, f"{name}: {n} launches, expected "
+              f"{layers * n_steps} ({layers} a step)")
+    check(dict(seen) == {("bfloat16",) * 3: layers * n_steps},
+          f"flash op q/k/v dtypes {dict(seen)}: expected bf16 only")
+    check(calls == 0, f"{calls} calls took the blockwise route")
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()) and
+          all(m.dtype == torch.float32 for m in train._masters.values()),
+          "parameters not bf16 or masters not fp32")
+    # the warm-up's first steps move a master by lr (some 1e-8): under half
+    # an ulp of 1.0, so a LayerNorm scale may stay where it started
+    check(all(n.endswith(("ln1.weight", "ln2.weight", "ln_f.weight"))
+              for n in unmoved), f"masters that did not move: {unmoved}")
+    return launches
+
+
+def bwd_frobenius(fa, q, k, v, o, lse, g, causal, got):
+    """Relative Frobenius errors of ``got`` = K2/K3's (dq, dk, dv) against
+    the plain backward in fp32 on the same inputs, and of the control:
+    that backward with the last DROPPED_KEYS keys left out (their dk and
+    dv 0), rounded to the inputs' dtype as the kernels' outputs are.
+    Returns two dicts by name."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, g))
+    want = fa.blockwise_attention_backward(qf, kf, vf, of, lse, gf, causal,
+                                           scale)[:3]
+    kept = k.shape[1] - DROPPED_KEYS
+    dq, dk, dv, _ = fa.blockwise_attention_backward(
+        qf, kf[:, :kept], vf[:, :kept], of, lse, gf, causal, scale)
+    dk, dv = (torch.cat([t, t.new_zeros(t.shape[0], DROPPED_KEYS,
+                                        *t.shape[2:])], 1) for t in (dk, dv))
+
+    def rel(x, y):
+        return ((x.double() - y.double()).norm() / y.double().norm()).item()
+    names = ("dq", "dk", "dv")
+    return ({n: rel(x, y) for n, x, y in zip(names, got, want)},
+            {n: rel(x.to(q.dtype), y)
+             for n, x, y in zip(names, (dq, dk, dv), want)})
+
+
+def phase_gpt_kernels(fa, dev):
+    """K1-K3 at GPT-3 1.3B's shape (B4 S2048 H16 D128, causal, bf16), as
+    the O2 step feeds them: against their plain versions (and K2/K3 by
+    relative Frobenius error against the plain backward in fp32, beside
+    a control that must fail), bitwise determinism, blocks per SM and
+    waves, and phase_timing's times and bounds (over the causal triangle)
+    beside SDPA's bf16 causal forward and backward. Returns (rows,
+    largest error by wrapper)."""
+    from paddle_tpu_torch.ops import kernels
+    b, s, h, d, causal = GPT_SHAPE
+    dtype = torch.bfloat16
+    scale = 1.0 / math.sqrt(d)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                  .to(dtype) for _ in range(4))
+    print(f"[gpt_kernels] B{b} S{s} H{h} D{d} causal={causal} bf16")
+    errs, _ = kernels_against_plain(fa, q, k, v, g, causal, dtype)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, g, lse, causal, scale)
+        runs.append((o, lse, dq, delta) + fa.flash_bwd_dkv(
+            q, k, v, g, lse, delta, causal, scale))
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    print(f"[gpt_kernels] two runs of K1, K2 and K3: "
+          f"{'bitwise equal' if same else 'DIFFER'}")
+    check(same, "K1-K3 at GPT's shape not bitwise deterministic")
+    o, lse, dq, _, dk, dv = runs[0]
+    del runs
+    frob, control = bwd_frobenius(fa, q, k, v, o, lse, g, causal,
+                                  (dq, dk, dv))
+    print(f"[gpt_kernels] K2/K3 against the plain backward in fp32, "
+          f"relative Frobenius error: "
+          + " ".join(f"{n} {e:.3e}" for n, e in frob.items())
+          + f"; control (last {DROPPED_KEYS} keys left out): "
+          + " ".join(f"{n} {e:.3e}" for n, e in control.items())
+          + f" (bound {GRAD_FROB_BOUND:g})")
+    check(max(frob.values()) <= GRAD_FROB_BOUND,
+          f"K2/K3 at GPT's shape against fp32: {frob}")
+    check(min(control.values()) > GRAD_FROB_BOUND,
+          f"the control passes the bound, which then sees no missing key "
+          f"tile: {control}")
+    lib = kernels.library("flash_attention")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for which, wrapper in enumerate(REPLACES):
+        blocks, threads, smem, rows = occupancy(lib, which, 1, d)
+        grid = b * h * -(-s // rows)
+        print(f"[gpt_kernels] {KERNEL_FN[wrapper]} bf16 D{d}: {blocks} "
+              f"blocks/SM ({threads} threads, {smem} B shared); grid "
+              f"{grid} blocks on {sms} SMs = {grid / (blocks * sms):.3f} "
+              f"waves")
+    return phase_timing(fa, dev, dtype, GPT_SHAPE, n=5), errs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1729,6 +2208,7 @@ def main():
     phase_fp64(fa, dev)
     rows = {dt: phase_timing(fa, dev, dt)
             for dt in (torch.float32, torch.bfloat16)}
+    gpt_rows, gpt_errs = phase_gpt_kernels(fa, dev)
     phase_flash_route(fa, dev)
     phase_tiny(tpt, dev)
     phase_tiny_o2(tpt, fa, dev)
@@ -1739,14 +2219,23 @@ def main():
     phase_detection_ops(dev)
     phase_yolov3_tiny(tpt, dev)
     phase_yolov3(tpt, dev)
+    phase_gpt_tiny(tpt, fa, dev)
+    model = phase_gpt_cache(tpt, fa, dev)
+    gpt_launches = phase_gpt_o2(tpt, fa, dev, model)
+    del model
     # fp32 rows: launches on the O1 path (phase bert); bf16 rows: on the
-    # O2 path (phase bert_o2)
+    # O2 path (phase bert_o2); _gpt rows: at GPT-3 1.3B's shape, launches
+    # on its O2 path (phase gpt_o2)
     record = {"kernels": [
         dict(name=name + ("" if dt == torch.float32 else "_bf16"),
              route="cuda", source=SOURCE, replaces=REPLACES[name],
              launches=launches[dt][name], max_abs_err=errs[name, dt],
              **rows[dt][name])
-        for dt in (torch.float32, torch.bfloat16) for name in REPLACES]}
+        for dt in (torch.float32, torch.bfloat16) for name in REPLACES] + [
+        dict(name=name + "_gpt", route="cuda", source=SOURCE,
+             replaces=REPLACES[name], launches=gpt_launches[name],
+             max_abs_err=gpt_errs[name], **gpt_rows[name])
+        for name in REPLACES]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -21,9 +21,12 @@ class Layer(torch.nn.Module):
         self._dtype = dtypes.convert_dtype(dtype or "float32")
 
     def create_parameter(self, shape, dtype=None, is_bias: bool = False,
-                         default_initializer=None) -> torch.nn.Parameter:
+                         default_initializer=None,
+                         attr=None) -> torch.nn.Parameter:
         """A parameter drawn on the CPU from the initializer's generator,
-        then moved to the current device."""
+        then moved to the current device. ``attr`` (a ``ParamAttr``) is
+        taken for the reference's signature (``:64``), which reads only
+        its name: a parameter here is named by its place in the tree."""
         from ..nn import initializer as init
         dtype = dtypes.convert_dtype(dtype or self._dtype)
         if default_initializer is None:

@@ -1,9 +1,10 @@
-"""paddle.nn parity: the layer classes BERT and the vision models use.
+"""paddle.nn parity: the layer classes the text and vision models use.
 
 Port of ``Linear``, ``Conv2D``, the batch norms, the 2-D pools,
 ``LayerNorm``, ``Embedding``, ``Dropout``, ``Flatten``, ``ReLU``,
 ``ReLU6``, ``LeakyReLU`` and ``ParamAttr`` from
-``paddle_tpu/nn/__init__.py``. Weights
+``paddle_tpu/nn/__init__.py``, and every class of ``nn/transformer.py``.
+Weights
 keep the reference's layouts (``Linear`` is ``[in, out]``, ``Conv2D``
 OIHW in either data format), so weights carry across with no transposes.
 """
@@ -19,7 +20,8 @@ from ..dygraph.tracer import trace_op
 from ..dygraph.varbase import Parameter, to_variable  # noqa: F401
 from . import functional as F  # noqa: F401
 from . import initializer
-from .transformer import (MultiHeadAttention,  # noqa: F401
+from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
+                          TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
 
 

@@ -1,16 +1,20 @@
-"""BERT / ERNIE encoder with the pretraining heads.
+"""Text model zoo: GPT-style causal LM and BERT/ERNIE encoders.
 
-Port of the BERT half of ``paddle_tpu/text/models.py``: post-LN encoder,
-flash attention, MLM decoder tied to the word embedding (one
-``nn.Parameter`` registered under both ``bert.embeddings.word.weight``
-and ``cls.decoder_weight``, as the reference's names go). GPT is not
-ported yet.
+Port of ``paddle_tpu/text/models.py``: the pre-LN GPT decoder (causal
+flash attention, a KV cache through ``GPTDecoderBlock(cache=...)``, an
+optional MoE MLP) with its LM head tied to the token embedding, and the
+post-LN BERT encoder with the pretraining heads, whose MLM decoder is
+tied to the word embedding (one ``nn.Parameter`` registered under both
+``bert.embeddings.word.weight`` and ``cls.decoder_weight``, as the
+reference's names go). Position ids are made on the input's device, not
+from host data as in the reference, so a forward waits for no copy.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import nn
+from ..distributed.moe import MoELayer
 from ..dygraph.layers import Layer
 from ..dygraph.tracer import trace_op
 from ..nn import functional as F
@@ -23,6 +27,126 @@ def _embedding(num, dim, std=0.02):
                             initializer=initializer.Normal(0.0, std)))
 
 
+def _positions(input_ids):
+    """[B, S] int64 positions 0..S-1 on the ids' device."""
+    b, s = input_ids.shape[0], input_ids.shape[1]
+    return torch.arange(s, dtype=torch.int64,
+                        device=input_ids.device).expand(b, s)
+
+
+class GPTDecoderBlock(Layer):
+    """Pre-LN decoder block: LN→causal MHA→residual, LN→MLP→residual.
+    ``moe`` switches the MLP to a MoELayer. With ``cache`` (a
+    ``nn.MultiHeadAttention.Cache``) forward returns ``(x, new_cache)``."""
+
+    def __init__(self, d_model, nhead, d_ffn, dropout=0.0, moe=False,
+                 num_experts=8, moe_top_k=2, activation="gelu",
+                 sp_axis=None):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(d_model)
+        self.attn = nn.MultiHeadAttention(d_model, nhead, dropout=dropout,
+                                          causal=True, sp_axis=sp_axis)
+        self.ln2 = nn.LayerNorm(d_model)
+        self.is_moe = moe
+        if moe:
+            self.mlp = MoELayer(d_model, d_ffn, num_experts,
+                                top_k=moe_top_k, activation=activation)
+        else:
+            self.fc1 = nn.Linear(d_model, d_ffn)
+            self.fc2 = nn.Linear(d_ffn, d_model)
+        self.dropout = dropout
+        self.activation = activation
+
+    def forward(self, x, cache=None):
+        h = self.ln1(x)
+        if cache is not None:
+            a, cache = self.attn(h, attn_mask=None, cache=cache)
+        else:
+            a = self.attn(h)
+        x = x + a
+        h = self.ln2(x)
+        if self.is_moe:
+            h = self.mlp(h)
+        else:
+            h = self.fc2(getattr(F, self.activation)(self.fc1(h)))
+        if self.dropout:
+            h = F.dropout(h, self.dropout, training=self.training)
+        x = x + h
+        if cache is not None:
+            return x, cache
+        return x
+
+
+class GPTModel(Layer):
+    """Decoder-only LM trunk. forward(input_ids [B, S]) -> [B, S, D]."""
+
+    def __init__(self, vocab_size, d_model=768, num_layers=12, nhead=12,
+                 d_ffn=None, max_position=2048, dropout=0.0, moe=False,
+                 num_experts=8, moe_top_k=2, sp_axis=None):
+        super().__init__()
+        d_ffn = d_ffn or 4 * d_model
+        self.wte = _embedding(vocab_size, d_model)
+        self.wpe = _embedding(max_position, d_model)
+        self.blocks = nn.LayerList([
+            GPTDecoderBlock(d_model, nhead, d_ffn, dropout, moe=moe,
+                            num_experts=num_experts, moe_top_k=moe_top_k,
+                            sp_axis=sp_axis)
+            for _ in range(num_layers)])
+        self.ln_f = nn.LayerNorm(d_model)
+        self.d_model = d_model
+        self.vocab_size = vocab_size
+        self.dropout = dropout
+
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            position_ids = _positions(input_ids)
+        x = self.wte(input_ids) + self.wpe(position_ids)
+        if self.dropout:
+            x = F.dropout(x, self.dropout, training=self.training)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_f(x)
+
+    def aux_losses(self):
+        return [blk.mlp.aux_loss for blk in self.blocks
+                if blk.is_moe and blk.mlp.aux_loss is not None]
+
+
+class GPTForCausalLM(Layer):
+    """LM head tied to the token embedding; loss = next-token CE
+    (+ the MoE aux losses, weighted, when experts are enabled)."""
+
+    def __init__(self, vocab_size, d_model=768, num_layers=12, nhead=12,
+                 d_ffn=None, max_position=2048, dropout=0.0, moe=False,
+                 num_experts=8, moe_top_k=2, aux_loss_weight=0.01,
+                 sp_axis=None):
+        super().__init__()
+        self.gpt = GPTModel(vocab_size, d_model, num_layers, nhead, d_ffn,
+                            max_position, dropout, moe, num_experts,
+                            moe_top_k, sp_axis=sp_axis)
+        self.aux_loss_weight = aux_loss_weight
+
+    def forward(self, input_ids, labels=None):
+        h = self.gpt(input_ids)
+        # tied lm head: logits = h @ wte^T
+        logits = trace_op(
+            "matmul_v2", {"X": [h], "Y": [self.gpt.wte.weight]},
+            {"trans_y": True}, out_slots=["Out"])[0]
+        if labels is None:
+            return logits
+        b, s = labels.shape[0], labels.shape[1]
+        shift_logits = logits[:, :-1, :].reshape(
+            ((s - 1) * b, self.gpt.vocab_size))
+        shift_labels = labels[:, 1:].reshape(((s - 1) * b, 1))
+        loss = F.cross_entropy(shift_logits, shift_labels)
+        for aux in self.gpt.aux_losses():
+            loss = loss + self.aux_loss_weight * aux
+        return logits, loss
+
+
+# ---------------------------------------------------------------------------
+# BERT / ERNIE encoder
+# ---------------------------------------------------------------------------
 class BertEmbeddings(Layer):
     def __init__(self, vocab_size, d_model, max_position=512,
                  type_vocab_size=2, dropout=0.1, eps=1e-12):
@@ -34,10 +158,8 @@ class BertEmbeddings(Layer):
         self.dropout = dropout
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
-        b, s = input_ids.shape[0], input_ids.shape[1]
         if position_ids is None:
-            position_ids = torch.arange(
-                s, dtype=torch.int64, device=input_ids.device).expand(b, s)
+            position_ids = _positions(input_ids)
         x = self.word(input_ids) + self.position(position_ids)
         if token_type_ids is not None:
             x = x + self.token_type(token_type_ids)
@@ -158,6 +280,23 @@ class BertForPretraining(Layer):
 # ERNIE is architecture-identical to BERT at this snapshot
 ErnieModel = BertModel
 ErnieForPretraining = BertForPretraining
+
+
+def gpt_tiny(vocab_size=1024, **kw):
+    return GPTForCausalLM(vocab_size, d_model=128, num_layers=2, nhead=4,
+                          max_position=512, **kw)
+
+
+def gpt2_small(vocab_size=50257, **kw):
+    return GPTForCausalLM(vocab_size, d_model=768, num_layers=12, nhead=12,
+                          max_position=1024, **kw)
+
+
+def gpt3_1p3b(vocab_size=50257, **kw):
+    """GPT-3 XL (Brown et al. 2020, Table 2.1): d 2048, 24 layers, 16
+    heads of 128, d_ffn 8192, context 2048."""
+    return GPTForCausalLM(vocab_size, d_model=2048, num_layers=24,
+                          nhead=16, max_position=2048, **kw)
 
 
 def bert_base(**kw):

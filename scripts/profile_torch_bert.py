@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where a train step of paddle_tpu_torch spends its time on one CUDA
-card: BERT-base O1 or O2, or ResNet-50 O1; or a YOLOv3-416 predict.
+card: BERT-base O1 or O2, GPT-3 1.3B O2 or ResNet-50 O1; or a
+YOLOv3-416 predict.
 
     python3 scripts/profile_torch_bert.py [--steps 3] [--amp O2]
+    python3 scripts/profile_torch_bert.py --model gpt [--steps 3]
     python3 scripts/profile_torch_bert.py --model resnet50 --layout NHWC
     python3 scripts/profile_torch_bert.py --model yolov3 [--steps 5]
 
@@ -13,6 +15,10 @@ masters), AdamW with LinearWarmup(PolynomialDecay), ClipGradByGlobalNorm
 (1.0) and weight decay 0.01, and the update (clip, decay, the adamw op,
 the masters' cast) also reported on its own (device ms and launches a
 step).
+GPT: as phase ``gpt_o2``: gpt3_1p3b() from seed 0, amp.decorate O2 (bf16
+parameters, fp32 masters), AdamW (beta 0.9 / 0.95, weight decay 0.1)
+with GPT-3's warm-up and cosine schedule, ClipGradByGlobalNorm(1.0),
+micro-batch 4 at seq 2048; the update reported on its own as for BERT.
 ResNet-50: resnet50(num_classes=1000, data_format=--layout),
 cross_entropy, Momentum 0.1 / 0.9, O1, batch 256, 224 px, cudnn.benchmark
 on. Warms up two steps, then traces ``--steps`` steps with torch.profiler
@@ -97,6 +103,24 @@ def build_bert(dev, amp_level):
                       amp_level=amp_level).ensure_state()
     gen = torch.Generator(device=dev).manual_seed(0)
     return model, train, make_batch(gen, dev, 16, 128, 30522)
+
+
+def build_gpt(dev):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import lr
+    from paddle_tpu_torch.text import gpt3_1p3b
+    from chip_smoke import GPT3, gpt3_schedule, gpt_opt, gpt_step_fn
+    model = gpt3_1p3b(vocab_size=GPT3["vocab"])
+    model, opt = amp.decorate(model, gpt_opt(model, gpt3_schedule(lr)),
+                              level="O2")
+    opt.functional_step = _ranged(UPDATE, opt.functional_step)
+    train = TrainStep(model, gpt_step_fn, opt,
+                      amp_level="O2").ensure_state()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(0, GPT3["vocab"], (GPT3["batch"], GPT3["seq"]),
+                        generator=gen, device=dev, dtype=torch.int32)
+    return model, train, (ids,)
 
 
 def build_resnet(dev, layout):
@@ -247,7 +271,8 @@ def profile_yolov3(dev, steps):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--model", choices=("bert", "resnet50", "yolov3"),
+    ap.add_argument("--model", choices=("bert", "gpt", "resnet50",
+                                        "yolov3"),
                     default="bert")
     ap.add_argument("--layout", choices=("NHWC", "NCHW"), default="NHWC")
     ap.add_argument("--amp", choices=("O1", "O2"), default="O1",
@@ -265,11 +290,15 @@ def main():
     if args.model == "yolov3":
         return profile_yolov3(dev, args.steps)
     resnet = args.model == "resnet50"
-    model, train, batch = (build_resnet(dev, args.layout) if resnet
-                           else build_bert(dev, args.amp))
-    print(f"[profile] {args.model}"
-          + (f" {args.layout}, cudnn.benchmark on" if resnet else
-             f" {args.amp}"))
+    if resnet:
+        model, train, batch = build_resnet(dev, args.layout)
+        print(f"[profile] resnet50 {args.layout}, cudnn.benchmark on")
+    elif args.model == "gpt":
+        model, train, batch = build_gpt(dev)
+        print("[profile] gpt O2 (GPT-3 1.3B, batch 4, seq 2048)")
+    else:
+        model, train, batch = build_bert(dev, args.amp)
+        print(f"[profile] bert {args.amp}")
     for _ in range(2):
         train(*batch)
     torch.cuda.synchronize()

@@ -36,5 +36,6 @@ def test_no_jax_or_reference_import(path):
 def test_scan_sees_the_package():
     assert len(FILES) > 15
     assert (ROOT / "chip_smoke.py").exists()
-    for module in ("ops/detection_ops.py", "vision/detection_models.py"):
+    for module in ("ops/detection_ops.py", "vision/detection_models.py",
+                   "ops/moe_ops.py", "distributed/moe.py"):
         assert ROOT / "paddle_tpu_torch" / module in FILES

@@ -227,3 +227,81 @@ def test_op_feeds_the_kernels_on_the_card(cuda, case):
         for name, x, y, tol in zip(("o", "dq", "dk", "dv"), got, want,
                                    (o_tol, g_tol, g_tol, g_tol)):
             torch.testing.assert_close(x, y, msg=name, **tol)
+
+
+@pytest.mark.gpu
+def test_kernels_at_gpt_shape(cuda):
+    """Causal, head dim 128, bf16, at GPT-3 1.3B's sequence of 2048 (B1
+    H2): K1's grid and lse run over 32 row tiles and the causal skip
+    over 32 key tiles. K2/K3's gradients also by relative Frobenius
+    error against the plain backward in fp32, within a bound that the
+    same backward with its last key tile left out fails."""
+    q, k, v, g = _inputs(cuda, 1, 2048, 2048, 2, 128, torch.bfloat16)
+    _check_against_plain(q, k, v, g, True, torch.bfloat16)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, g, lse, True, scale)
+    got = (dq,) + fa.flash_bwd_dkv(q, k, v, g, lse, delta, True, scale)
+    frob, control = chip_smoke.bwd_frobenius(fa, q, k, v, o, lse, g, True,
+                                             got)
+    assert max(frob.values()) <= chip_smoke.GRAD_FROB_BOUND, frob
+    assert min(control.values()) > chip_smoke.GRAD_FROB_BOUND, control
+
+
+def _block_pair(cuda):
+    """A GPTDecoderBlock (head dim 128) on the card and its copy on the
+    CPU, from the same weights."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.convert import load_state_dict
+    from paddle_tpu_torch.text.models import GPTDecoderBlock
+    tpt.set_device("cpu")
+    tpt.seed(0)
+    cpu = GPTDecoderBlock(256, 2, 512)
+    state = {k: v.numpy() for k, v in cpu.state_dict().items()}
+    tpt.set_device(cuda)
+    return load_state_dict(GPTDecoderBlock(256, 2, 512), state), cpu
+
+
+@pytest.mark.gpu
+def test_gpt_block_launches_the_kernels(cuda):
+    """The flash_attention op in a GPTDecoderBlock on the card: K1-K3 once
+    each, nothing on the blockwise route, and the block's output and
+    gradients equal its CPU copy's (fp32 bounds above)."""
+    card, cpu = _block_pair(cuda)
+    x = torch.randn(2, 256, 256, generator=torch.Generator().manual_seed(3))
+    launches = [w.launches for w in fa.WRAPPERS]
+    calls = fa.blockwise_route.calls
+    got = []
+    for model, dev in ((card, cuda), (cpu, torch.device("cpu"))):
+        xi = x.to(dev).requires_grad_()
+        out = model(xi)
+        (out * out).sum().backward()
+        got.append([t.detach().cpu() for t in
+                    (out, xi.grad, model.attn.q_weight.grad)])
+    assert [w.launches - n for w, n in zip(fa.WRAPPERS, launches)] == \
+        [1, 1, 1]
+    assert fa.blockwise_route.calls == calls
+    tol_o, tol_g = TOL[torch.float32]
+    torch.testing.assert_close(got[0][0], got[1][0], **tol_o)
+    for a, b in zip(got[0][1:], got[1][1:]):
+        torch.testing.assert_close(a, b, **tol_g)
+
+
+@pytest.mark.gpu
+def test_cached_decode_on_the_card(cuda):
+    """gpt_tiny on the card: a prompt of 16 through the blocks with
+    fresh caches, then 8 single-token steps on the q_offset route, equal
+    to the uncached forward on the card (fp32 bounds above)."""
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.text import gpt_tiny
+    tpt.set_device(cuda)
+    tpt.seed(0)
+    model = gpt_tiny().eval()
+    ids = torch.randint(0, 1024, (2, 24), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(4))
+    calls = fa.blockwise_route.calls
+    with torch.no_grad():
+        cached = chip_smoke.gpt_cached_logits(model, ids, 16)
+        full = model(ids)
+    assert fa.blockwise_route.calls == calls + 8 * 2
+    torch.testing.assert_close(cached, full, **TOL[torch.float32][0])

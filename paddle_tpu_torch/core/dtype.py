@@ -61,3 +61,19 @@ def convert_dtype(dtype) -> torch.dtype:
     enforce(name in _ALIASES, f"unknown dtype {dtype!r}",
             InvalidArgumentError)
     return _ALIASES[name]
+
+
+_NAMES = {bool_: "bool", int8: "int8", uint8: "uint8", int16: "int16",
+          int32: "int32", int64: "int64", float16: "float16",
+          bfloat16: "bfloat16", float32: "float32", float64: "float64",
+          complex64: "complex64", complex128: "complex128"}
+
+
+def dtype_name(dtype) -> str:
+    """The canonical name of a dtype ("float32", "int64", ...): what the
+    Program IR writes, as the JAX package writes ``np.dtype.name``."""
+    return _NAMES[convert_dtype(dtype)]
+
+
+def is_floating(dtype) -> bool:
+    return convert_dtype(dtype).is_floating_point

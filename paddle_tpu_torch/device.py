@@ -6,6 +6,9 @@ The port runs on ``cuda`` unless the caller asks for the CPU with
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from .core.enforce import InvalidArgumentError, UnavailableError
@@ -30,3 +33,25 @@ def get_device() -> torch.device:
             "no CUDA device is available; call "
             "paddle_tpu_torch.device.set_device('cpu') to run on the CPU")
     return dev
+
+
+_op_tls = threading.local()
+
+
+@contextlib.contextmanager
+def op_device(device):
+    """Where ops that take no tensor input (``fill_constant``,
+    ``gaussian_random``) create their output while active: the static
+    executor's device, or ``meta`` while a builder infers shapes."""
+    prev = getattr(_op_tls, "device", None)
+    _op_tls.device = torch.device(device)
+    try:
+        yield
+    finally:
+        _op_tls.device = prev
+
+
+def creation_device() -> torch.device:
+    """The device of :func:`op_device`, else :func:`get_device`."""
+    dev = getattr(_op_tls, "device", None)
+    return dev if dev is not None else get_device()

@@ -1,6 +1,6 @@
 """Parameter initializers drawing from an explicit ``torch.Generator``.
 
-Port of ``paddle_tpu/nn/initializer.py`` (Constant, Normal,
+Port of ``paddle_tpu/nn/initializer.py`` (Constant, Uniform, Normal,
 XavierNormal, XavierUniform, KaimingNormal). Each is a callable
 ``(shape, dtype) -> CPU tensor``; the values come from ``generator`` when
 one is given, else from the thread's default generator
@@ -48,6 +48,20 @@ class Constant(Initializer):
     def __call__(self, shape, dtype):
         return torch.full(tuple(shape), self.value,
                           dtype=dtypes.convert_dtype(dtype))
+
+
+class Uniform(Initializer):
+    """U(low, high). ``seed`` is what a static startup program's
+    ``uniform_random`` op carries (0: the global stream)."""
+
+    def __init__(self, low=-1.0, high=1.0, seed=0, generator=None):
+        super().__init__(generator)
+        self.low, self.high, self.seed = low, high, seed
+
+    def __call__(self, shape, dtype):
+        x = torch.empty(tuple(shape)).uniform_(self.low, self.high,
+                                               generator=self._gen())
+        return x.to(dtypes.convert_dtype(dtype))
 
 
 class Normal(Initializer):

@@ -1,3 +1,4 @@
 """Registered ops. Importing this package registers every op type."""
-from . import (detection_ops, flash_attention, math, moe_ops,  # noqa: F401
-               nn_ops, optimizer_ops, tensor_ops)
+from . import (decode_ops, detection_ops, flash_attention,  # noqa: F401
+               loss_ops, math, moe_ops, nn_ops, optimizer_ops, rnn_ops,
+               sequence_ops, tensor_ops)

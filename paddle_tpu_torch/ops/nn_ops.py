@@ -2,10 +2,12 @@
 dropout, embedding lookup.
 
 Port of the op types of ``paddle_tpu/ops/nn_ops.py`` that a BERT
-pretraining step and a ResNet training step run. The JAX package's
-custom grads for ``dropout`` (reuse the saved mask) and
-``lookup_table_v2`` (scatter-add into the table) are what torch autograd
-does for these ops by itself.
+pretraining step, a ResNet training step and the static graph's
+builders (``softmax``, the 1.x ``lookup_table``) run. The JAX package's
+custom grad for ``lookup_table_v2`` (scatter-add into the table) is
+what torch autograd does by itself. ``dropout`` keeps its custom grad
+(``dx = dOut * Mask``) for the static graph's grad op, which must not
+run the forward again: that would draw another mask.
 
 Layout: the spatial ops honour ``data_format`` / ``data_layout`` as the
 reference does. An NHWC tensor is a logical ``[N, H, W, C]`` tensor;
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 
 from ..core import rng
 from ..core.enforce import InvalidArgumentError, enforce
-from ..core.registry import register_op
+from ..core.registry import register_grad, register_op
 
 
 def _pair(v, n=2):
@@ -262,6 +264,12 @@ def layer_norm(inputs, attrs):
             "Variance": [var]}
 
 
+@register_op("softmax")
+def softmax(inputs, attrs):
+    return {"Out": [torch.softmax(inputs["X"][0],
+                                  dim=attrs.get("axis", -1))]}
+
+
 @register_op("softmax_with_cross_entropy",
              intermediate_outputs=("Softmax",),
              non_differentiable_inputs=("Label",))
@@ -292,8 +300,11 @@ def softmax_with_cross_entropy(inputs, attrs):
 
 @register_op("dropout", intermediate_outputs=("Mask",))
 def dropout(inputs, attrs):
-    """ref: operators/dropout_op.cc. Draws from a generator of its own
-    (``core/rng.op_generator``), so each call takes a fresh mask."""
+    """ref: operators/dropout_op.cc. Draws from
+    ``core/rng.random_generator``: in a static executor run, keyed on
+    (seed, step, the op's place among the block's random ops), so each
+    step takes a fresh mask; in dygraph, a generator of its own each
+    call."""
     x = inputs["X"][0]
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
@@ -303,13 +314,31 @@ def dropout(inputs, attrs):
                 "Mask": [torch.ones_like(x, dtype=torch.uint8)]}
     if p == 0.0:
         return {"Out": [x], "Mask": [torch.ones_like(x, dtype=torch.uint8)]}
-    gen = rng.op_generator(attrs.get("seed", 0) or 0, x.device)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+    if x.device.type == "meta":            # shape inference draws nothing
+        keep = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    else:
+        gen = rng.random_generator(attrs.get("seed", 0) or 0, x.device)
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
     if impl == "upscale_in_train":
         out = torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
     else:
         out = torch.where(keep, x, 0.0).to(x.dtype)
     return {"Out": [out], "Mask": [keep.to(torch.uint8)]}
+
+
+@register_grad("dropout")
+def dropout_grad(inputs, outputs, out_grads, attrs):
+    """The static grad op's gradient, from the forward's saved Mask (the
+    JAX package's ``dropout_grad``, ``paddle_tpu/ops/nn_ops.py:504``)."""
+    g = out_grads["Out"][0]
+    mask = outputs["Mask"][0].to(g.dtype)
+    p = attrs.get("dropout_prob", 0.5)
+    if attrs.get("dropout_implementation", "downgrade_in_infer") == \
+            "upscale_in_train":
+        gx = g * mask / (1.0 - p) if p != 1.0 else torch.zeros_like(g)
+    else:
+        gx = g * mask
+    return {"X": [gx]}
 
 
 @register_op("lookup_table_v2", non_differentiable_inputs=("Ids",))
@@ -322,3 +351,13 @@ def lookup_table_v2(inputs, attrs):
         pid = padding_idx if padding_idx >= 0 else w.shape[0] + padding_idx
         out = torch.where((ids == pid).unsqueeze(-1), 0.0, out)
     return {"Out": [out]}
+
+
+@register_op("lookup_table", non_differentiable_inputs=("Ids",))
+def lookup_table(inputs, attrs):
+    """The 1.x embedding: ids [..., 1] (a trailing 1, as 1.x data
+    declares them) or [...]."""
+    w, ids = inputs["W"][0], inputs["Ids"][0]
+    if ids.ndim >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    return lookup_table_v2({"W": [w], "Ids": [ids]}, attrs)

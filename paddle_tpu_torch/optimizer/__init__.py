@@ -14,7 +14,9 @@ The eager ``step()`` keys its state by the parameter's position in the
 optimizer's list (torch parameters carry no Paddle unique name):
 ``state_dict()`` holds ``param_<i>.<slot>`` (``param_0.Moment1``),
 ``param_<i>.master_weight``, ``global_step`` and ``LR_Scheduler``.
-``jit.TrainStep`` keeps its own state by structured name.
+``jit.TrainStep`` keeps its own state by structured name. ``minimize``
+on a static-graph loss appends backward and one update op a parameter
+to its program instead (``static.StaticOptimizerMixin``).
 
 Not ported yet: ``exotic.py`` (ModelAverage, EMA, Lookahead, Recompute,
 GradientMerge, Pipeline; Dpsgd, DecayedAdagrad and Ftrl, whose ops are
@@ -253,11 +255,38 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """Dygraph: backward + step (the static-graph form is not
-        ported)."""
+        """Dygraph: backward + step; a static Variable (or its name) as
+        the loss: append backward + update ops to its program (ref:
+        optimizer.minimize contract)."""
+        from ..static import StaticOptimizerMixin, Variable as StaticVar
+        if isinstance(loss, (StaticVar, str)):
+            return StaticOptimizerMixin.minimize_static(
+                self, loss, startup_program, parameters, no_grad_set)
         loss.backward()
         self.step()
         return [], [(p, p.grad) for p in self._params]
+
+    # static-mode plumbing lives in static.StaticOptimizerMixin; bind the
+    # methods here so fluid-style `opt.minimize(static_loss)` works
+    def minimize_static(self, *a, **kw):
+        from ..static import StaticOptimizerMixin
+        return StaticOptimizerMixin.minimize_static(self, *a, **kw)
+
+    def _append_update_ops(self, *a, **kw):
+        from ..static import StaticOptimizerMixin
+        return StaticOptimizerMixin._append_update_ops(self, *a, **kw)
+
+    def _append_lr_and_update_ops(self, *a, **kw):
+        from ..static import StaticOptimizerMixin
+        return StaticOptimizerMixin._append_lr_and_update_ops(self, *a, **kw)
+
+    def _state_spec_names(self):
+        from ..static import StaticOptimizerMixin
+        return StaticOptimizerMixin._state_spec_names(self)
+
+    def _state_init(self, *a, **kw):
+        from ..static import StaticOptimizerMixin
+        return StaticOptimizerMixin._state_init(self, *a, **kw)
 
     # -- checkpointing --
     def state_dict(self):

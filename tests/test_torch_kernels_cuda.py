@@ -14,6 +14,9 @@ so 4e-3 (a few fp16 ulps of values near 1); lse is fp32 from the same
 widened products in both. Beside the plain version, K1's fp32 o and lse
 and K2/K3's fp32 gradients are held against float64 within bounds that
 the same kernels in plain TF32 fail.
+
+The static executor's grad ops on the card close the file: the flash
+op's reaches K2 and K3, and dropout's reads the mask its forward drew.
 """
 import math
 import sys
@@ -305,3 +308,53 @@ def test_cached_decode_on_the_card(cuda):
         full = model(ids)
     assert fa.blockwise_route.calls == calls + 8 * 2
     torch.testing.assert_close(cached, full, **TOL[torch.float32][0])
+
+
+@pytest.mark.gpu
+def test_static_grad_op_reaches_the_kernels(cuda):
+    """chip_smoke phase static_flash: a static program of one
+    flash_attention op (BERT-base shape, bf16) and mean, with
+    append_backward on q, k and v: K1 launches in the forward op and K2
+    and K3 in its grad op, once each a run, and o, dq, dk and dv equal
+    the dygraph op's bit for bit."""
+    import paddle_tpu_torch as tpt
+    tpt.set_device("cuda")
+    deltas, static, dygraph = chip_smoke.static_flash_run(tpt, cuda)
+    assert deltas == [[1, 1, 1], [1, 1, 1]]
+    for got, want in zip(static, dygraph):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 7])
+def test_static_dropout_grad_uses_the_forward_mask(cuda, seed):
+    """A static dropout on the card, by the grad-op record route and the
+    recompute route: W@GRAD and b@GRAD are the gradients of the mask the
+    forward drew (rtol 1e-5 against float64; TF32 is off), the two routes
+    draw the same mask and give the same gradients, and the next step
+    draws another mask."""
+    import numpy as np
+    import paddle_tpu_torch as tpt
+    tpt.set_device("cuda")
+    x = np.random.RandomState(1).randn(8, 16).astype(np.float32)
+    got = {}
+    for route in ("record", "recompute"):
+        prog, startup, names = chip_smoke.static_dropout_program(
+            chip_smoke.port_static_api(), seed, "upscale_in_train")
+        tpt.seed(3)
+        scope, exe = tpt.Scope(), tpt.Executor()
+        exe._force_recompute = route == "recompute"
+        exe.run(startup, scope=scope)
+        got[route] = [chip_smoke.static_dropout_step(
+            lambda *a, **k: exe.run(*a, scope=scope, **k), prog, names, x,
+            "upscale_in_train") for _ in range(2)]
+    for steps in got.values():
+        assert not np.array_equal(steps[0][0], steps[1][0])
+        for m, grads, want in steps:
+            assert 0 < m.sum() < m.size
+            for g, w in zip(grads, want):
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7)
+    for (rm, rg, _), (cm, cg, _) in zip(got["record"], got["recompute"]):
+        np.testing.assert_array_equal(rm, cm)
+        for a, b in zip(rg, cg):
+            np.testing.assert_array_equal(a, b)

@@ -125,6 +125,26 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      step; the recompute grad route; the port's dygraph ResNet-50 at O0
      through jit.TrainStep on the same batch beside it; the loss finite
      and falling, the parameters and BN statistics moved.
+  22. predictor: the classic fluid ResNet-50 (static_resnet, batch -1,
+     224 px, 1000 classes, fp32 NCHW, the logits fetched) and the attn
+     program (BERT-base's self-attention sublayer, attn_program: x [B, 128,
+     768], Wq/Wk/Wv, flash_attention, Wo, residual, layer_norm, in bf16)
+     saved by save_inference_model and run through inference.Predictor on
+     the card: run(list) and the zero-copy handles bit for bit against
+     Executor.run of the loaded program, and against a CPU Predictor
+     (K1 once an attn run);
+  23. serve, the main path of the serving slice: both artifacts as
+     tenants of one PredictorServer (resnet50 buckets 1/8/32, attn 4/16),
+     frozen; closed-loop client threads send seeded requests of 1-8 rows
+     (resnet50) and 1-4 (attn); every answer against a direct Predictor
+     run of the request padded to the bucket that served it; 0 steady
+     compiles; K1 launched once an attn batch, from the attn worker on the
+     caller's stream, K2 and K3 not at all; latency p50/p99, requests and
+     rows a second, batch occupancy, pipeline depth, launches and host
+     syncs a batch, peak memory and the card line;
+  24. serve_restart: a second server on the same cache directory
+     warm-loads every bucket, compiles nothing and answers a repeated
+     request with the same bits.
 The last two lines are the kernels' JSON record (each kernel at fp32,
 its launches from phase 7; as <name>_bf16 at bf16, its launches from
 phase 8; as <name>_gpt at GPT-3 1.3B's shape, its launches from phase
@@ -2428,7 +2448,8 @@ def static_resnet(api, batch, px, class_dim=1000, depth=(3, 4, 6, 3),
     at widths 64-512) with its parameter names, trained by
     softmax_with_cross_entropy + mean and Momentum(lr, momentum)
     .minimize (with ``train``), NCHW fp32, built with ``api`` (either
-    package): (main, startup, {"loss", "acc", "image", "label"})."""
+    package); ``batch`` -1 leaves the batch to the feed: (main, startup,
+    {"loss", "acc", "image", "label", "logits"})."""
     pt, static = api.pt, api.static
     nn = static.nn
 
@@ -2474,7 +2495,8 @@ def static_resnet(api, batch, px, class_dim=1000, depth=(3, 4, 6, 3),
         if train:
             api.Momentum(learning_rate=lr, momentum=momentum).minimize(loss)
     return prog, startup, {"loss": loss.name, "acc": acc.name,
-                           "image": image.name, "label": label.name}
+                           "image": image.name, "label": label.name,
+                           "logits": out.name}
 
 
 # card against CPU for the book programs, from the same startup
@@ -2845,6 +2867,595 @@ def phase_static_flash(tpt, dev):
         check(same, f"static {what} differs from the dygraph op's")
 
 
+
+# ------------------------------------------------------------- serving
+# the attn tenant: BERT-base's self-attention sublayer as a static
+# program (x -> q/k/v projections -> flash_attention -> output
+# projection + residual -> layer_norm)
+ATTN = dict(hidden=768, heads=12, seq=128)
+ATTN_DTYPE = "bfloat16"                   # as STATIC_FLASH runs it
+SERVE_RESNET = dict(px=224, class_dim=1000)
+SERVE_BUCKETS = {"resnet50": [1, 8, 32], "attn": [4, 16]}
+# each tenant's closed-loop clients as (threads, (fewest, most) rows a
+# request): interactive clients send what the smaller buckets take; bulk
+# clients send more rows than the middle bucket holds, so their requests
+# head batches of the largest bucket (a batch's bucket is the smallest
+# that fits its head request), which queued interactive requests fill
+SERVE_CLIENTS = {"resnet50": [(6, (1, 8)), (2, (9, 16))],
+                 "attn": [(2, (1, 4)), (1, (5, 8))]}
+SERVE_SECONDS = 20.0          # every client sends until the window ends
+SERVE_POOL = 16               # seeded requests a client cycles through
+# served answers against their rows of a direct Predictor run of the
+# batch that served them: the same kernels at the same shapes, so equal
+# but for a kernel that picks another algorithm on another thread (fp32
+# at the fp32 check's bound, bf16 at one bf16 ulp of the output's
+# scale); the count of bit-equal answers is printed
+SERVE_TOL = {"resnet50": (1e-5, 1e-5), "attn": (2.0 ** -7, 2.0 ** -7)}
+
+
+def attn_program(api, hidden, heads, seq, dtype="float32"):
+    """The attn tenant's program built with ``api`` (either package): a
+    float32 feed "x" [-1, seq, hidden] (cast to ``dtype`` first when
+    that is not float32), Wq/Wk/Wv ``mul`` + ``elementwise_add``,
+    ``reshape`` to [B, seq, heads, hidden / heads], non-causal
+    ``flash_attention``, ``reshape`` back, Wo ``mul`` + bias, the
+    residual, ``layer_norm`` over the last axis, and a float32 fetch:
+    (program, {parameter name: shape}, fetch name)."""
+    prog = api.pt.Program()
+    blk = prog.global_block()
+    d = hidden // heads
+    params = {}
+
+    def op(type_, ins, outs, attrs=None):
+        for names in outs.values():
+            for n in names:
+                blk.create_var(n)
+        blk.append_op(type_, ins, outs, attrs or {})
+
+    def param(name, shape):
+        blk.create_var(name, shape=shape, dtype=dtype, persistable=True)
+        params[name] = shape
+
+    def linear(x, w, out):
+        param(w, (hidden, hidden))
+        param(w + "_b", (hidden,))
+        op("mul", {"X": [x], "Y": [w]}, {"Out": [out + "_mul"]},
+           {"x_num_col_dims": 2, "y_num_col_dims": 1})
+        op("elementwise_add", {"X": [out + "_mul"], "Y": [w + "_b"]},
+           {"Out": [out]}, {"axis": -1})
+
+    blk.create_var("x", shape=(-1, seq, hidden), dtype="float32",
+                   is_data=True)
+    h = "x"
+    if dtype != "float32":
+        op("cast", {"X": ["x"]}, {"Out": ["x_in"]}, {"out_dtype": dtype})
+        h = "x_in"
+    for n in "qkv":
+        linear(h, "w" + n, n + "_lin")
+        op("reshape", {"X": [n + "_lin"]}, {"Out": [n]},
+           {"shape": [0, 0, heads, d]})
+    op("flash_attention", {"Q": ["q"], "K": ["k"], "V": ["v"]},
+       {"Out": ["ctx4"]}, {"causal": False})
+    op("reshape", {"X": ["ctx4"]}, {"Out": ["ctx"]},
+       {"shape": [0, 0, hidden]})
+    linear("ctx", "wo", "o_lin")
+    op("elementwise_add", {"X": ["o_lin"], "Y": [h]}, {"Out": ["res"]},
+       {"axis": -1})
+    param("ln_scale", (hidden,))
+    param("ln_bias", (hidden,))
+    op("layer_norm", {"X": ["res"], "Scale": ["ln_scale"],
+                      "Bias": ["ln_bias"]},
+       {"Y": ["y"], "Mean": ["ln_mean"], "Variance": ["ln_var"]},
+       {"begin_norm_axis": 2, "epsilon": 1e-12})
+    fetch = "y"
+    if dtype != "float32":
+        op("cast", {"X": ["y"]}, {"Out": ["out"]}, {"out_dtype": "float32"})
+        fetch = "out"
+    return prog, params, fetch
+
+
+def attn_values(params, seed):
+    """Seeded float32 values for attn_program's parameters: weights
+    N(0, 0.02) as BERT initializes them, small random biases, layer-norm
+    scales near 1."""
+    rs = np.random.RandomState(seed)
+    out = {}
+    for n, shape in sorted(params.items()):
+        if n == "ln_scale":
+            v = 1.0 + 0.1 * rs.randn(*shape)
+        elif n.startswith("w") and len(shape) == 2:
+            v = 0.02 * rs.randn(*shape)
+        else:
+            v = 0.1 * rs.randn(*shape)
+        out[n] = v.astype(np.float32)
+    return out
+
+
+def save_attn(api, exe, path, hidden, heads, seq, dtype="float32", seed=0):
+    """attn_program with attn_values(seed) saved by ``api``'s
+    save_inference_model into ``path``; returns the values."""
+    prog, params, fetch = attn_program(api, hidden, heads, seq, dtype)
+    values = attn_values(params, seed)
+    scope = api.pt.Scope()
+    for n, v in values.items():
+        if dtype == "bfloat16":      # numpy has no bfloat16: the port only
+            v = torch.from_numpy(v).to(torch.bfloat16)
+        scope.var(n).set(api.pt.TpuTensor(v))
+    with api.pt.scope_guard(scope):
+        api.io.save_inference_model(path, ["x"], [fetch], exe,
+                                    main_program=prog, scope=scope)
+    return values
+
+
+def save_static_resnet(api, exe, path, px, class_dim, **kw):
+    """static_resnet (batch -1) for inference: its startup run by ``exe``
+    and the program saved by ``api``'s save_inference_model into
+    ``path`` with "image" as the feed and the logits as the fetch."""
+    prog, startup, fetch = static_resnet(api, -1, px, class_dim,
+                                         train=False, **kw)
+    scope = api.pt.Scope()
+    exe.run(startup, scope=scope)
+    with api.pt.scope_guard(scope):
+        api.io.save_inference_model(path, [fetch["image"]],
+                                    [fetch["logits"]], exe,
+                                    main_program=prog, scope=scope)
+    return fetch["logits"]
+
+
+def serve_feed(name, rows, rs):
+    """A seeded request of ``rows`` rows for the tenant ``name``."""
+    if name == "resnet50":
+        px = SERVE_RESNET["px"]
+        return {"image": rs.rand(rows, 3, px, px).astype(np.float32)}
+    return {"x": rs.randn(rows, ATTN["seq"],
+                          ATTN["hidden"]).astype(np.float32)}
+
+
+def predict(tpt, path, feed):
+    """A direct Predictor run: create_predictor(Config(path)) on the
+    current device, ``run`` on the feeds in order."""
+    from paddle_tpu_torch import inference
+    pred = inference.create_predictor(inference.Config(path))
+    return pred, pred.run([feed[n] for n in pred.get_input_names()])
+
+
+def rel_err(got, want):
+    return float(np.linalg.norm(got.astype(np.float64) - want) /
+                 max(np.linalg.norm(want.astype(np.float64)), 1e-30))
+
+
+def phase_predictor(tpt, fa, dev, workdir):
+    """The saved resnet50 and attn artifacts through Predictor on the
+    card: ``run(list)`` and the zero-copy handles, each bit for bit
+    against Executor.run of the loaded program on the same inputs, and
+    against a CPU Predictor within the bounds phase static_resnet_tiny
+    (resnet50, fp32) and the kernels' bf16 check (attn) use. K1 launches
+    once an attn run. Returns the artifacts' paths."""
+    from paddle_tpu_torch import inference, io
+    api = port_static_api()
+    tpt.set_device(dev)
+    paths = {n: f"{workdir}/{n}" for n in ("resnet50", "attn")}
+    tpt.seed(0)
+    t0 = time.perf_counter()
+    save_static_resnet(api, api.pt.Executor(), paths["resnet50"],
+                       **SERVE_RESNET)
+    save_attn(api, api.pt.Executor(), paths["attn"], **ATTN,
+              dtype=ATTN_DTYPE)
+    print(f"[predictor] resnet50 and attn ({ATTN_DTYPE}) built, initialized "
+          f"and saved in {time.perf_counter() - t0:.2f} s")
+    rs = np.random.RandomState(7)
+    batches = {"resnet50": 8, "attn": 4}
+    for name, path in paths.items():
+        feed = serve_feed(name, batches[name], rs)
+        k1 = fa.flash_fwd.launches
+        pred, (out,) = predict(tpt, path, feed)
+        launches = fa.flash_fwd.launches - k1
+        for n in pred.get_input_names():
+            pred.get_input_handle(n).copy_from_cpu(feed[n])
+        pred.zero_copy_run()
+        handle = pred.get_output_handle(pred.get_output_names()[0])
+        zc = handle.copy_to_cpu()
+        exe, scope = api.pt.Executor(), api.pt.Scope()
+        prog, feeds, fetches = io.load_inference_model(path, exe,
+                                                       scope=scope)
+        want, = exe.run(prog, feed=feed, fetch_list=fetches, scope=scope)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pred.run([feed[n] for n in pred.get_input_names()])
+            times.append((time.perf_counter() - t1) * 1e3)
+        tpt.set_device("cpu")
+        try:
+            _, (cpu,) = predict(tpt, path, feed)
+        finally:
+            tpt.set_device(dev)
+        err = rel_err(out, cpu)
+        if name == "resnet50":      # fp32: static_resnet_tiny's loss bound
+            bound = f"rel err bound {RESNET_TINY_TOL['loss'][0]:g}"
+            close = err <= RESNET_TINY_TOL["loss"][0]
+        else:                       # bf16: the kernels' bf16 bound on o
+            rtol, atol = TOL[torch.bfloat16]["o"]
+            bound = f"rtol/atol {rtol:g}/{atol:g}"
+            close = bool(np.allclose(out, cpu, rtol=rtol, atol=atol))
+        print(f"[predictor] {name}: batch {batches[name]} -> "
+              f"{tuple(out.shape)} {out.dtype}, finite "
+              f"{bool(np.isfinite(out).all())}; run(list) "
+              f"{'equals' if np.array_equal(out, want) else 'DIFFERS FROM'} "
+              f"Executor.run, zero-copy "
+              f"{'equals' if np.array_equal(zc, out) else 'DIFFERS FROM'} "
+              f"run(list); card vs CPU rel err {err:.3e} ({bound}) "
+              f"{'ok' if close else 'FAIL'}; K1 launches a run {launches}; "
+              f"predict ms median {sorted(times)[2]:.3f} over 5")
+        check(np.isfinite(out).all(), f"{name}: non-finite output")
+        check(np.array_equal(out, want),
+              f"{name}: Predictor differs from Executor.run")
+        check(np.array_equal(zc, out),
+              f"{name}: the zero-copy run differs from run(list)")
+        check(close, f"{name}: the card's prediction disagrees with the "
+                     f"CPU's")
+        check(launches == (1 if name == "attn" else 0),
+              f"{name}: K1 launched {launches} times in one run")
+    return paths
+
+
+def _serve_tenants(srv, paths):
+    """Both tenants added to ``srv`` with their buckets: the models and
+    the seconds each ``add_tenant`` took (load, admission, prewarm)."""
+    feed_name = {"resnet50": "image", "attn": "x"}
+    shapes = {"resnet50": (3, SERVE_RESNET["px"], SERVE_RESNET["px"]),
+              "attn": (ATTN["seq"], ATTN["hidden"])}
+    models, secs = {}, {}
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        models[name] = srv.add_tenant(name, path, buckets=[
+            {feed_name[name]: ((b,) + shapes[name], "float32")}
+            for b in SERVE_BUCKETS[name]])
+        secs[name] = time.perf_counter() - t0
+    return models, secs
+
+
+def client_feeds(name, seed, rows):
+    """One client's SERVE_POOL seeded requests of (fewest, most)
+    ``rows`` rows, made before the timed window."""
+    rs = np.random.RandomState(seed)
+    return [serve_feed(name, int(rs.randint(rows[0], rows[1] + 1)), rs)
+            for _ in range(SERVE_POOL)]
+
+
+def _client(srv, name, feeds, stop_at, results):
+    """One closed-loop client: sends its requests in turn, each when the
+    previous one is answered, until ``stop_at``. It keeps a copy of each
+    answer (the served rows are views of the batch's pinned buffer), or
+    the error that ended it."""
+    i = 0
+    try:
+        while time.perf_counter() < stop_at:
+            feed = feeds[i % len(feeds)]
+            i += 1
+            fut = srv.submit(name, feed)
+            got = [np.array(o) for o in fut.result(timeout=120)]
+            results.append((name, feed, fut, got))
+    except Exception as e:      # noqa: BLE001 - the phase fails on it
+        results.append((name, None, None, e))
+
+
+def _bucket_batch(key):
+    """The batch size of a bucket key ("<feed>:<B>x...")."""
+    return int(key.split(":")[1].split("x")[0])
+
+
+class _K1Spy:
+    """A stand-in for ``fa.flash_fwd`` that notes the thread and stream
+    of each call and keeps the first q/k/v of each batch size. The
+    wrapper counts its launches on the name ``flash_fwd``, which is this
+    object while it stands in, so ``launches`` is the wrapper's own."""
+
+    def __init__(self, fwd, seen):
+        self.fwd, self.seen = fwd, seen
+
+    launches = property(lambda self: self.fwd.launches,
+                        lambda self, n: setattr(self.fwd, "launches", n))
+
+    def __call__(self, q, k, v, causal, scale, block_size=512):
+        import threading
+        self.seen["calls"].append((
+            threading.current_thread().name,
+            torch.cuda.current_stream(q.device).cuda_stream))
+        if q.shape[0] not in self.seen["inputs"]:
+            self.seen["inputs"][q.shape[0]] = (q.clone(), k.clone(),
+                                               v.clone(), causal, scale)
+        return self.fwd(q, k, v, causal, scale, block_size)
+
+
+def _batch_profile(model):
+    """Launches and CUDA runtime calls of one batch of ``model`` on the
+    path the worker thread takes (stage, the program, the readback's
+    copies and event), profiled on this thread, per bucket."""
+    out = {}
+    for b in model.policy.buckets:
+        feed = {n: np.zeros(shape, dt) for n, (shape, dt) in b.spec.items()}
+        prof = profile_call(
+            lambda: model.readback(model.run_padded(b, feed)).wait())
+        out[b.batch] = prof
+    return out
+
+
+def serve_k1_check(fa, inputs):
+    """K1 against its plain version on the q/k/v the attn program fed it
+    while serving, for each batch size, at the bf16 bounds of phase
+    kernels; and again with q scaled by 8. BERT-initialized weights give
+    scores of std about 0.3, so the softmax is near uniform and the plain
+    o lies near V's mean over the keys: that distance is printed, and K1
+    must lie four times closer to the plain o than V's mean does. The
+    scaled q makes the softmax sharp."""
+    for b, (q, k, v, causal, scale) in sorted(inputs.items()):
+        for q_mul in (1.0, 8.0):
+            qm = (q.float() * q_mul).to(q.dtype)
+            print(f"[serve] K1 on the attn tenant's q/k/v from a batch of "
+                  f"{b}: B{b} S{q.shape[1]} H{q.shape[2]} D{q.shape[3]} "
+                  f"{str(q.dtype).split('.')[-1]}, q x{q_mul:g}")
+            o, lse = fa.flash_fwd(qm, k, v, causal, scale)
+            o_r, lse_r = fa.blockwise_attention(qm, k, v, causal=causal,
+                                                scale=scale)
+            torch.cuda.synchronize()
+            spread = (o_r.float() - v.float().mean(1, keepdim=True)
+                      ).abs().max().item()
+            err = err_of(o, o_r, *TOL[torch.bfloat16]["o"], "o")
+            err_of(lse, lse_r, *LSE_TOL, "lse")
+            print(f"    the plain o lies up to {spread:.3e} from V's mean "
+                  f"over the keys")
+            check(err < spread / 4, f"K1 at B{b} is no closer to the "
+                                    f"plain o than V's mean is")
+
+
+def phase_serve(tpt, fa, dev, paths, workdir):
+    """Both tenants in one PredictorServer on the card, for a window of
+    SERVE_SECONDS: interactive and bulk closed-loop clients (SERVE_CLIENTS)
+    send seeded requests. Every batch the server ran is run again by a
+    direct Predictor on the same padded rows, and each request's answer
+    is held against its rows of that run. Every declared bucket above 1
+    must have served a batch of several requests. 0 steady compiles
+    after freeze; K1 launched once an attn batch, from the worker thread
+    on the caller's stream, and K2 and K3 not at all; K1 against its
+    plain version on the q/k/v it was fed. Prints latency percentiles,
+    throughput, batches and occupancy by bucket, pipeline depth, launches
+    and host syncs a batch, peak memory and add_tenant's time on an
+    empty cache."""
+    import threading
+    from paddle_tpu_torch.observability import flight_recorder, metrics
+    from paddle_tpu_torch.serving import PredictorServer
+    tpt.set_device(dev)
+    srv = PredictorServer(cache_dir=f"{workdir}/cache", max_linger_ms=2.0)
+    models, boot = _serve_tenants(srv, paths)
+    print("[serve] add_tenant on an empty cache directory (load, admission, "
+          "prewarm): " + ", ".join(
+              f"{n} {boot[n]:.3f} s, buckets "
+              f"{[b.batch for b in m.policy.buckets]} compiles {m.compiles} "
+              f"warm_loads {m.warm_loads}" for n, m in models.items()))
+    srv.start()
+    main_stream = torch.cuda.current_stream().cuda_stream
+    seen = {"calls": [], "inputs": {}}
+    fwd = fa.flash_fwd
+    pools = [(name, client_feeds(name, 1000 * t + 100 * c + i, rows))
+             for t, name in enumerate(SERVE_CLIENTS)
+             for c, (n, rows) in enumerate(SERVE_CLIENTS[name])
+             for i in range(n)]
+    try:
+        srv.freeze()
+        # warm-up: one request per bucket size pays cuBLAS's and cuDNN's
+        # first calls outside the window
+        rs = np.random.RandomState(11)
+        for name, sizes in SERVE_BUCKETS.items():
+            for b in sizes:
+                srv.predict(name, serve_feed(name, b, rs), timeout=300)
+        torch.cuda.synchronize()
+        metrics.reset()
+        flight_recorder.reset()
+        flight_recorder.enable(capacity=1 << 16)
+        for w in fa.WRAPPERS:
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_fwd = _K1Spy(fwd, seen)
+        results = []
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=_client, args=(
+            srv, name, feeds, t0 + SERVE_SECONDS, results))
+            for name, feeds in pools]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVE_SECONDS + 600)
+        wall = time.perf_counter() - t0
+        fa.flash_fwd = fwd
+        launches = {w.__name__: w.launches for w in fa.WRAPPERS}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(not any(t.is_alive() for t in threads),
+              "a client thread did not finish")
+        snap = metrics.snapshot()
+        events = [e for e in flight_recorder.events()
+                  if e["kind"] == "serving_batch"]
+        stats = srv.stats()
+        depth = metrics.MetricRegistry.instance().get_histogram(
+            "serving/pipeline_depth")
+        depth_sum = depth.summary() if depth else {}
+        depths = collections.Counter(depth.values() if depth else [])
+    finally:
+        fa.flash_fwd = fwd
+        flight_recorder.disable()
+        srv.stop()
+    errors = [r[3] for r in results if r[2] is None]
+    check(not errors, f"{len(errors)} clients failed: {errors[:1]!r}")
+    batches = {n: int(snap.get(f"serving/batches/{n}", 0))
+               for n in SERVE_CLIENTS}
+    check(all(batches.values()), f"a tenant served no batch: {batches}")
+    check(len(events) == sum(batches.values()),
+          f"{len(events)} batch events for {batches} batches")
+    by_id = {fut.request_id: r for r in results for fut in (r[2],)}
+    check(sorted(by_id) == sorted(i for e in events
+                                  for i in e["request_ids"]),
+          "the batch events and the answers name different requests")
+    # every batch again through a direct Predictor on the same padded
+    # rows; each request's answer against its rows of that run
+    preds = {name: predict(tpt, path, serve_feed(name, 1, rs))[0]
+             for name, path in paths.items()}
+    per = {n: dict(exact=0, worst=0.0, bad=[], lat=collections.defaultdict(
+        list), batches=collections.Counter(), multi=collections.Counter(),
+        reqs=collections.Counter(), rows=collections.Counter())
+        for n in SERVE_CLIENTS}
+    served = []
+    for e in events:
+        name, b = e["tenant"], _bucket_batch(e["bucket"])
+        reqs = [by_id[i] for i in e["request_ids"]]
+        x = np.concatenate([next(iter(r[1].values())) for r in reqs])
+        padded = np.zeros((b,) + x.shape[1:], x.dtype)
+        padded[:len(x)] = x
+        want = preds[name].run([padded])[0]
+        p = per[name]
+        p["batches"][b] += 1
+        p["multi"][b] += len(reqs) > 1
+        p["reqs"][b] += len(reqs)
+        p["rows"][b] += len(x)
+        start = 0
+        for _, feed, fut, (got,) in reqs:
+            rows = next(iter(feed.values())).shape[0]
+            w = want[start:start + rows]
+            rtol, atol = SERVE_TOL[name]
+            p["exact"] += bool(np.array_equal(got, w))
+            p["worst"] = max(p["worst"], rel_err(got, w))
+            if got.shape != w.shape or not np.allclose(
+                    got, w, rtol=rtol, atol=atol * np.abs(w).max()):
+                p["bad"].append(fut.request_id)
+            t = fut.timing
+            p["lat"][b].append((t["t_done"] - t["t_submit"]) * 1e3)
+            served.append((name, feed, got, b, start))
+            start += rows
+    profs = {n: _batch_profile(m) for n, m in models.items()}
+    card = card_line()
+    for name in SERVE_CLIENTS:
+        p = per[name]
+        lat = np.asarray([t for v in p["lat"].values() for t in v])
+        rows = sum(p["rows"].values())
+        p50, p90, p99 = np.percentile(lat, [50, 90, 99])
+        wait = snap.get(f"serving/queue_wait_ms/{name}") or {}
+        clients = " and ".join(f"{n} clients of {lo}-{hi} rows"
+                               for n, (lo, hi) in SERVE_CLIENTS[name])
+        print(f"[serve] {name}: {len(lat)} requests ({rows} rows) in "
+              f"{batches[name]} batches over {wall:.3f} s from {clients}, "
+              f"closed loop: latency p50 {p50:.3f} ms p90 {p90:.3f} ms p99 "
+              f"{p99:.3f} ms max {lat.max():.3f} ms; {len(lat) / wall:.2f} "
+              f"requests/s, {rows / wall:.2f} rows/s; queue wait p50 "
+              f"{wait.get('p50', 0):.3f} ms (last 2048 requests); answers "
+              f"within rtol/atol {SERVE_TOL[name]} of the direct Predictor "
+              f"run of their batch: {len(lat) - len(p['bad'])}/{len(lat)} "
+              f"({p['exact']} bit-equal, worst rel err {p['worst']:.3e})")
+        for b in sorted(p["batches"]):
+            n = p["batches"][b]
+            print(f"[serve] {name}: bucket {b}: {n} batches, {p['multi'][b]} "
+                  f"of several requests, {p['reqs'][b] / n:.2f} requests "
+                  f"and occupancy {p['rows'][b] / (n * b):.3f} a batch, "
+                  f"latency p50 {np.percentile(p['lat'][b], 50):.3f} ms")
+        for b, prof in profs[name].items():
+            rt = prof["runtime"]
+            print(f"[serve] {name}: one bucket-{b} batch on the worker's "
+                  f"path: {prof['launches']} launches, host syncs "
+                  f"{prof['syncs']} (cudaStreamSynchronize) + "
+                  f"{rt.get('cudaEventSynchronize', 0)} "
+                  f"(cudaEventSynchronize, the readback's wait), "
+                  f"{rt.get('cudaMemcpyAsync', 0)} cudaMemcpyAsync; wall "
+                  f"{prof['wall_ms']:.3f} ms, device busy "
+                  f"{prof['busy_ms']:.3f} ms")
+    stall = {n: snap.get(f"serving/dispatch_stall_ms/{n}") or {}
+             for n in SERVE_CLIENTS}
+    workers = collections.Counter(name for name, _ in seen["calls"])
+    streams = {s for _, s in seen["calls"]}
+    print(f"[serve] pipeline depth (batches in flight at dispatch, limit "
+          f"{srv.tenant('attn').pipeline_depth}) over "
+          f"{depth_sum.get('count', 0)} batches: mean "
+          f"{depth_sum.get('mean', 0):.3f} max {depth_sum.get('max', 0):g}; "
+          f"the last 2048: {dict(sorted(depths.items()))}; dispatch stall "
+          f"p50 " + ", ".join(f"{n} {stall[n].get('p50', 0):.3f} ms"
+                              for n in SERVE_CLIENTS))
+    print(f"[serve] launches in the window {launches} against "
+          f"{batches['attn']} attn batches; K1 launched from threads "
+          f"{dict(workers)} on stream(s) {sorted(streams)} (the caller's "
+          f"current stream {main_stream}); peak memory {peak:.3f} GiB; "
+          f"compiles {stats['compiles']}, steady_compiles "
+          f"{stats['steady_compiles']}; {card}")
+    bad = {n: per[n]["bad"][:5] for n in SERVE_CLIENTS if per[n]["bad"]}
+    check(not bad, f"served answers disagree with the Predictor: {bad}")
+    lonely = [(n, b) for n in SERVE_CLIENTS for b in SERVE_BUCKETS[n]
+              if b > 1 and not per[n]["multi"][b]]
+    check(not lonely, f"no batch of several requests in buckets {lonely}")
+    check(stats["steady_compiles"] == 0 and all(
+        m.steady_compiles == 0 for m in models.values()),
+        "steady compiles after freeze")
+    check(launches["flash_fwd"] == batches["attn"] > 0,
+          "K1 did not launch once an attn batch")
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+          "K2 or K3 launched while serving")
+    check(set(workers) == {"pt-serve-attn"} and streams == {main_stream},
+          "K1 launched off the attn worker or off the caller's stream")
+    check(set(seen["inputs"]) == set(SERVE_BUCKETS["attn"]),
+          f"K1 saw batch sizes {sorted(seen['inputs'])}")
+    serve_k1_check(fa, seen["inputs"])
+    return served, boot
+
+
+def phase_serve_restart(tpt, dev, paths, workdir, served, cold):
+    """A second server on phase serve's cache directory: every bucket
+    warm-loads and nothing is compiled; it answers, alone, a request of
+    each tenant that phase serve answered first in its batch, in the
+    bucket such a request selects alone, with the same bits. Prints
+    add_tenant's time here against phase serve's (``cold``), and the two
+    costs a warm boot trades: the params digest its cache key needs and
+    the shape probes the cache entries save."""
+    from paddle_tpu_torch.serving import PredictorServer
+    from paddle_tpu_torch.serving.buckets import signature_of
+    from paddle_tpu_torch.serving.model import _params_digest
+    tpt.set_device(dev)
+    srv = PredictorServer(cache_dir=f"{workdir}/cache", max_linger_ms=0.0)
+    models, warm = _serve_tenants(srv, paths)
+    srv.start()
+    try:
+        again = {}
+        for name, model in models.items():
+            feed, first = next(
+                (f, g) for n, f, g, b, start in served
+                if n == name and start == 0 and
+                model.policy.select(signature_of(f)).batch == b)
+            again[name] = (srv.predict(name, feed, timeout=300)[0], first)
+    finally:
+        srv.stop()
+    stats = srv.stats()
+    digest, probe = {}, {}
+    for name, model in models.items():
+        t0 = time.perf_counter()
+        _params_digest(model._params)
+        digest[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for b in model.policy.buckets:
+            model._probe(b)
+        probe[name] = time.perf_counter() - t0
+    print("[serve_restart] " + ", ".join(
+        f"{n}: warm_loads {m.warm_loads} compiles {m.compiles}"
+        for n, m in models.items())
+        + f"; compiles in the store {stats['compiles']}; a repeated "
+        f"request " + ", ".join(
+            f"{n} {'equals' if np.array_equal(*a) else 'DIFFERS FROM'} "
+            f"phase serve's answer" for n, a in again.items()))
+    for n in models:
+        print(f"[serve_restart] {n}: add_tenant warm {warm[n]:.3f} s, cold "
+              f"{cold[n]:.3f} s (phase serve); of which both pay the params "
+              f"digest, {digest[n]:.3f} s, and a cold boot the shape probes "
+              f"of its {len(models[n].policy.buckets)} buckets, "
+              f"{probe[n]:.3f} s")
+    check(all(m.warm_loads == len(m.policy.buckets) and m.compiles == 0
+              for m in models.values()), "the restart compiled")
+    check(all(np.array_equal(*a) for a in again.values()),
+          "the restarted server answers differently")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2886,6 +3497,11 @@ def main():
     phase_static_book(tpt, dev)
     phase_static_resnet_tiny(tpt, dev)
     phase_static_resnet50(tpt, dev)
+    workdir = "build/serving"
+    shutil.rmtree(workdir, ignore_errors=True)
+    paths = phase_predictor(tpt, fa, dev, workdir)
+    served, cold = phase_serve(tpt, fa, dev, paths, workdir)
+    phase_serve_restart(tpt, dev, paths, workdir, served, cold)
     # fp32 rows: launches on the O1 path (phase bert); bf16 rows: on the
     # O2 path (phase bert_o2); _gpt rows: at GPT-3 1.3B's shape, launches
     # on its O2 path (phase gpt_o2)

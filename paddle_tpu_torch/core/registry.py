@@ -124,6 +124,17 @@ def register_infer_meta(op_type: str):
     return deco
 
 
+def run_meta(opdef: OpDef, inputs: Dict[str, List], attrs: Dict):
+    """An op's outputs on ``meta`` tensors (shapes and dtypes, no data):
+    its ``infer_meta`` rule, else its compute; an op with no tensor
+    input creates on ``meta`` and a random op draws nothing. The port's
+    ``jax.eval_shape``: static shape inference, the analyzer and the
+    serving plane's output probe all run through here."""
+    from ..device import op_device
+    with torch.no_grad(), op_device("meta"):
+        return (opdef.infer_meta or opdef.compute)(inputs, dict(attrs))
+
+
 def _floating(t) -> bool:
     return t.is_floating_point() or t.is_complex()
 

@@ -138,12 +138,21 @@ def load_persistables(executor, dirname, main_program: Optional[Program] = None,
                       filename: Optional[str] = None,
                       scope: Optional[Scope] = None):
     """ref: fluid/io.py:966. The values go onto the executor's place
-    (the default device when it has none)."""
+    (the default device when it has none). bfloat16, which npz cannot
+    hold, was written as float32 (exact, ``TpuTensor.numpy``): a var
+    the program declares bfloat16 comes back as bfloat16."""
     scope = scope or global_scope()
     place = getattr(executor, "place", None)
+    block = main_program.global_block() if main_program is not None \
+        else None
     with np.load(os.path.join(dirname, filename or "params.npz")) as data:
         for name in data.files:
-            scope.var(name).set(TpuTensor(data[name], device=place))
+            t = TpuTensor(data[name], device=place)
+            desc = block.find_var_recursive(name) if block else None
+            if desc is not None and desc.dtype == torch.bfloat16 and \
+                    t.dtype == torch.float32:
+                t = TpuTensor(t.value.to(torch.bfloat16))
+            scope.var(name).set(t)
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,

@@ -1,0 +1,160 @@
+"""Pad-to-bucket shape policy: the serving plane's recompile firewall.
+
+A copy of ``paddle_tpu/serving/buckets.py`` (pure Python).
+
+The executor/jit plane re-specializes per distinct feed signature, and
+the static analyzer's PTA301 lint names exactly that hazard for `-1`
+feed dims. A server cannot forbid ragged traffic, so it quantizes it:
+every request signature is padded UP to one of a small, fixed set of
+**buckets** (full shapes, batch dim included). Buckets are either
+declared at model load (the operator knows the traffic) or learned from
+the first occurrence of a signature by rounding every dim up to the
+next power of two — after which the bucket set is **frozen** and
+steady-state traffic compiles nothing (`ServedModel` counts any
+post-freeze compile in ``serving/steady_compiles``, the number the
+servegate holds at zero).
+
+A bucket is a mapping ``feed name -> (shape tuple, dtype str)``. A
+request *fits* a bucket when every feed has the same rank and dtype and
+no dim exceeds the bucket's; padding is zeros on the high side of each
+dim (sequence kernels follow the dense+Length convention, so padded
+tail rows/steps are masked by the model itself).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..analysis.recompile_lint import pow2_up as _pow2_up
+from ..core.enforce import InvalidArgumentError, enforce
+
+Signature = Dict[str, Tuple[Tuple[int, ...], str]]
+
+
+def signature_of(feeds: Dict[str, np.ndarray]) -> Signature:
+    """Canonical (shape, dtype) signature of a feed dict."""
+    return {n: (tuple(int(d) for d in np.shape(a)),
+                str(np.asarray(a).dtype))
+            for n, a in feeds.items()}
+
+
+class Bucket:
+    """One padded signature. ``key`` is the stable identifier the
+    executable cache and the perf-ledger labels are keyed on."""
+
+    def __init__(self, spec: Signature):
+        self.spec: Signature = {n: (tuple(int(x) for x in shape), str(dt))
+                                for n, (shape, dt) in sorted(spec.items())}
+        self.key = ",".join(
+            f"{n}:{'x'.join(map(str, shape))}:{dt}"
+            for n, (shape, dt) in self.spec.items())
+
+    @property
+    def batch(self) -> int:
+        """Rows the bucket holds: the leading dim of the first feed
+        (every feed shares the batch axis by the stacking contract)."""
+        first = next(iter(self.spec.values()))
+        return first[0][0] if first[0] else 1
+
+    def fits(self, sig: Signature, rows: Optional[int] = None) -> bool:
+        """Same feeds/ranks/dtypes, every dim <= the bucket's. ``rows``
+        overrides the batch-dim comparison (batch assembly asks whether
+        N accumulated rows still fit)."""
+        if set(sig) != set(self.spec):
+            return False
+        for n, (shape, dt) in sig.items():
+            bshape, bdt = self.spec[n]
+            if dt != bdt or len(shape) != len(bshape):
+                return False
+            dims = list(shape)
+            if rows is not None and dims:
+                dims[0] = int(rows)
+            if any(d > b for d, b in zip(dims, bshape)):
+                return False
+        return True
+
+    def pad(self, feeds: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Zero-pad every feed up to the bucket's shape."""
+        out = {}
+        for n, (bshape, bdt) in self.spec.items():
+            a = np.asarray(feeds[n], dtype=np.dtype(bdt))
+            pad = [(0, b - d) for d, b in zip(a.shape, bshape)]
+            enforce(all(p[1] >= 0 for p in pad),
+                    f"feed {n!r} shape {a.shape} exceeds bucket "
+                    f"{bshape}", InvalidArgumentError)
+            out[n] = np.pad(a, pad) if any(p[1] for p in pad) else a
+        return out
+
+    def to_dict(self) -> dict:
+        return {n: {"shape": list(shape), "dtype": dt}
+                for n, (shape, dt) in self.spec.items()}
+
+    def __repr__(self):
+        return f"Bucket({self.key})"
+
+
+class BucketPolicy:
+    """Ordered bucket set for one model. ``declared`` buckets are used
+    as-is (smallest fitting wins); with none declared, :meth:`resolve`
+    LEARNS a bucket per unseen signature (pow2-rounded dims) until
+    :meth:`freeze` — after freeze, learning is refused and the caller
+    decides (compile-and-count, or reject)."""
+
+    def __init__(self, declared: Optional[Sequence[Dict]] = None):
+        self.buckets: List[Bucket] = []
+        self.frozen = bool(declared)
+        for spec in declared or ():
+            self.add(spec)
+
+    def add(self, spec) -> Bucket:
+        """Register a bucket: a ``{feed: shape}`` / ``{feed: (shape,
+        dtype)}`` mapping (dtype defaults to float32) or a Bucket."""
+        if not isinstance(spec, Bucket):
+            norm: Signature = {}
+            for n, v in spec.items():
+                if isinstance(v, dict):             # to_dict round-trip
+                    norm[n] = (tuple(v["shape"]), str(v["dtype"]))
+                elif (isinstance(v, (tuple, list)) and len(v) == 2
+                        and isinstance(v[0], (tuple, list))):
+                    norm[n] = (tuple(v[0]), str(v[1]))
+                else:
+                    norm[n] = (tuple(v), "float32")
+            spec = Bucket(norm)
+        self.buckets.append(spec)
+        # smallest-fitting-first: order by padded volume so a 1-row
+        # request never lands in the 64-row bucket just because it was
+        # declared first
+        self.buckets.sort(key=lambda b: (sum(
+            int(np.prod(shape or (1,))) for shape, _ in b.spec.values()),
+            b.key))
+        return spec
+
+    def select(self, sig: Signature,
+               rows: Optional[int] = None) -> Optional[Bucket]:
+        for b in self.buckets:
+            if b.fits(sig, rows=rows):
+                return b
+        return None
+
+    def learn(self, sig: Signature) -> Bucket:
+        """Pow2-round every dim of the signature into a new bucket."""
+        return self.add(Bucket({
+            n: (tuple(_pow2_up(d) for d in shape), dt)
+            for n, (shape, dt) in sig.items()}))
+
+    def resolve(self, sig: Signature) -> Tuple[Optional[Bucket], bool]:
+        """Bucket for a signature: ``(bucket, learned_now)``. Returns
+        ``(None, False)`` when nothing fits and the set is frozen."""
+        b = self.select(sig)
+        if b is not None:
+            return b, False
+        if self.frozen:
+            return None, False
+        return self.learn(sig), True
+
+    def freeze(self):
+        self.frozen = True
+
+    def to_list(self) -> List[dict]:
+        return [b.to_dict() for b in self.buckets]

@@ -1,0 +1,681 @@
+"""Continuous-batching scheduler: per-tenant queue → padded batches.
+
+Port of ``paddle_tpu/serving/scheduler.py``, whole but for the
+live-telemetry hook (``_live.note_batch``, ROADMAP Queue 1 item 11).
+On the card the pipelining works through CUDA's stream order: the
+worker thread stages batch k+1 through pinned memory and enqueues its
+ops on the current stream while batch k still runs, and enqueues each
+batch's device-to-host copies with an event behind it
+(``ServedModel.readback``); the readback thread waits on that event
+alone, never on the stream, so it neither blocks the worker nor waits
+for a later batch.
+
+The unit of arrival is a *request* (a feed dict whose every array
+shares a leading batch axis); the unit of execution is a *bucket batch*
+(requests stacked on the batch axis, zero-padded to one of the model's
+bucket shapes). The worker loop per tenant:
+
+1. expire: any queued request past its deadline completes with
+   :class:`DeadlineExceeded` without ever touching the device
+   (``serving/deadline_expired``);
+2. dequeue earliest-deadline-first and resolve the head's bucket
+   (declared, or learned pre-freeze);
+3. fill: greedily take further queued requests that fit the same
+   bucket until its rows are spent — lingering at most
+   ``max_linger_ms`` (and never past the head's deadline slack) when
+   the bucket is underfull and the queue is dry;
+4. execute once, slice the batch axis back per request, complete the
+   futures.
+
+Observability rides the existing store end to end: request/batch
+counters and ``serving/request_latency_ms`` / ``queue_wait_ms`` /
+``batch_occupancy`` histograms (p50/p99 in ``obs_report``'s serving
+section), a ``serving/queue_depth/<tenant>`` gauge, a tracer span plus
+a flight-recorder event per executed batch. The chaos plane hooks in
+through ``testing.faults.on_request`` (``slow@ms=M,request=N``) right
+before a batch executes — the straggler-under-load simulation the
+queue tests reuse.
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from ..core.enforce import InvalidArgumentError, enforce
+from ..core.flags import get_flag
+from ..observability import flight_recorder as _flight
+from ..observability import metrics as _metrics
+from ..observability import threads as _obs_threads
+from ..observability import tracer as _tracer
+from ..testing import faults as _faults
+from .buckets import Bucket, signature_of
+from .model import ServedModel
+from .. import concurrency as _concurrency
+
+_request_ids = itertools.count(1)
+
+# EDF horizon for deadline-LESS requests under an EXPLICIT priority
+# scale (any class, 1.0 included): the virtual deadline is
+# t_submit + horizon * scale, so priority classes order deadline-less
+# traffic too (and age out — a batch request is deferred, never
+# starved). Only edf_scale=None (legacy in-process submit) keeps the
+# infinite key.
+_EDF_HORIZON_S = 60.0
+
+
+class DeadlineExceeded(RuntimeError):
+    """Request expired in queue before execution."""
+
+
+class ServingClosed(RuntimeError):
+    """Submit after the server/tenant stopped."""
+
+
+class PredictionFuture:
+    """Completion handle for one request."""
+
+    def __init__(self, request_id: int):
+        self.request_id = request_id
+        self._done = threading.Event()
+        self._result: Optional[List[np.ndarray]] = None
+        self._error: Optional[BaseException] = None
+        # monotonic stamps set by the scheduler at completion
+        # ({"t_submit", "t_exec", "t_done"}; t_exec absent when the
+        # request never reached the device) — the queue→batch half of
+        # the gateway's client→device request timeline
+        self.timing: Optional[dict] = None
+
+    def _complete(self, result=None, error=None):
+        self._result = result
+        self._error = error
+        self._done.set()
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def exception(self, timeout: Optional[float] = None):
+        enforce(self._done.wait(timeout),
+                f"request {self.request_id} still pending", TimeoutError)
+        return self._error
+
+    def result(self, timeout: Optional[float] = None) -> List[np.ndarray]:
+        enforce(self._done.wait(timeout),
+                f"request {self.request_id} still pending", TimeoutError)
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+
+class Request:
+    __slots__ = ("id", "tenant", "feeds", "sig", "rows", "deadline",
+                 "t_submit", "future", "external_id", "edf_deadline")
+
+    def __init__(self, tenant: str, feeds: Dict[str, np.ndarray],
+                 deadline_ms: Optional[float],
+                 edf_scale: Optional[float] = None,
+                 external_id: Optional[str] = None):
+        self.id = next(_request_ids)
+        self.tenant = tenant
+        # the id the CLIENT knows (gateway-minted or propagated from an
+        # x-request-id header/frame field); None for in-process callers
+        self.external_id = external_id
+        self.feeds = {n: np.asarray(a) for n, a in feeds.items()}
+        for n, a in self.feeds.items():
+            # batch assembly concatenates every feed on axis 0; a 0-d
+            # feed would only fail later inside np.concatenate with an
+            # opaque error — reject it here where the caller is
+            enforce(a.ndim >= 1,
+                    f"feed {n!r} is zero-dimensional; served feeds "
+                    f"need a leading batch axis (wrap scalars as "
+                    f"shape (1,))", InvalidArgumentError)
+        rows = {a.shape[0] for a in self.feeds.values()}
+        enforce(len(rows) == 1,
+                f"request feeds disagree on the batch axis: {sorted(rows)}",
+                InvalidArgumentError)
+        self.rows = rows.pop()
+        self.sig = signature_of(self.feeds)
+        self.t_submit = time.monotonic()
+        # `is not None`, not truthiness: an explicit deadline_ms=0 is a
+        # zero-budget request that must expire immediately, not run
+        # unbounded (0-means-disabled applies only to the
+        # serving_default_deadline_ms FLAG, resolved in add_tenant)
+        self.deadline = (self.t_submit + float(deadline_ms) / 1e3
+                         if deadline_ms is not None else None)
+        # the EDF ORDERING deadline: priority classes (gateway QoS)
+        # scale the scheduling deadline without touching expiry — a
+        # batch-class request sorts behind realtime traffic but still
+        # expires exactly at its real budget. None = legacy in-process
+        # submit: deadline-less requests keep their infinite key, so
+        # pre-gateway callers see identical ordering. An EXPLICIT scale
+        # (any class, 1.0 included) puts deadline-less requests on the
+        # aging horizon so classes order each other.
+        if edf_scale is None:
+            self.edf_deadline = self.deadline
+        else:
+            scale = max(float(edf_scale), 0.0) or 1.0
+            if self.deadline is not None:
+                self.edf_deadline = (
+                    self.t_submit
+                    + (self.deadline - self.t_submit) * scale)
+            else:
+                self.edf_deadline = (self.t_submit
+                                     + _EDF_HORIZON_S * scale)
+        self.future = PredictionFuture(self.id)
+
+    @property
+    def wire_id(self):
+        """The id a trace/span names: the client-visible external id
+        when one was propagated, else the internal ordinal."""
+        return self.external_id if self.external_id is not None else self.id
+
+    def expired(self, now: float) -> bool:
+        return self.deadline is not None and now > self.deadline
+
+    def slack_s(self, now: float) -> float:
+        return (float("inf") if self.deadline is None
+                else max(self.deadline - now, 0.0))
+
+
+def _edf_key(req: Request):
+    # earliest (priority-scaled) deadline first; FIFO (arrival id)
+    # among equals and among the deadline-less
+    return (req.edf_deadline if req.edf_deadline is not None
+            else float("inf"), req.id)
+
+
+class TenantScheduler:
+    """One tenant's queue + worker thread over its :class:`ServedModel`."""
+
+    def __init__(self, tenant: str, model: ServedModel, *,
+                 max_linger_ms: float = 2.0,
+                 default_deadline_ms: Optional[float] = None,
+                 strict_buckets: bool = False,
+                 on_batch: Optional[Callable] = None,
+                 pipeline_depth: Optional[int] = None):
+        self.tenant = tenant
+        self.model = model
+        self.max_linger_s = max(float(max_linger_ms), 0.0) / 1e3
+        # pipelined dispatch: up to this many batches in flight at
+        # once — the worker pads/stages/dispatches batch k+1 while the
+        # device executes batch k and a readback thread completes
+        # batch k's futures (the readback never stalls the dispatch
+        # loop). <= 1 is the serial legacy path: dispatch, block on
+        # readback, complete, repeat — bit-identical outputs either
+        # way, which the pipeline tests gate.
+        if pipeline_depth is None:
+            pipeline_depth = int(get_flag("serving_pipeline_depth"))
+        self.pipeline_depth = max(int(pipeline_depth), 1)
+        self._ring: deque = deque()     # dispatched, readback pending  # guarded_by: TenantScheduler._ring_cv
+        self._ring_cv = _concurrency.make_condition("TenantScheduler._ring_cv")
+        self._inflight = 0              # dispatched, futures not done
+        self._rb_quit = False
+        self._rb_thread: Optional[threading.Thread] = None
+        self._batch_seq = 0             # round-robin replica routing
+        # the tenant DEFAULT keeps the serving_default_deadline_ms
+        # flag's 0-means-disabled convention, normalized here where the
+        # default is consumed; spent-budget semantics (0 -> immediate
+        # DeadlineExceeded) apply only to per-request deadline_ms
+        self.default_deadline_ms = (
+            float(default_deadline_ms)
+            if default_deadline_ms is not None
+            and float(default_deadline_ms) > 0 else None)
+        self.strict_buckets = bool(strict_buckets)
+        self._on_batch = on_batch
+        self._queue: List[Request] = []   # guarded_by: TenantScheduler._cv
+        self._cv = _concurrency.make_condition("TenantScheduler._cv")
+        self._stopped = False             # guarded_by: TenantScheduler._cv
+        self._thread: Optional[threading.Thread] = None
+
+    # ---------------------------------------------------------- lifecycle
+    def start(self):
+        """(Re)start the worker. The whole decision runs under the
+        condition lock so concurrent start() calls can never race two
+        loops onto one queue: a live worker — including one still
+        draining past a timed-out stop() join — is REVIVED in place
+        (the ``_stopped`` reset is visible before its next check, since
+        the exit decision in ``_take_batch`` holds the same lock), and
+        only a never-started/exited/dead worker gets a fresh thread."""
+        with self._cv:
+            # stop() leaves _stopped armed; without this reset a
+            # restarted worker exits immediately and every submit
+            # raises ServingClosed while the server reports started
+            self._stopped = False
+            if self._thread is not None and self._thread.is_alive():
+                self._cv.notify_all()
+                return
+            thread = _obs_threads.spawn(
+                f"pt-serve-{self.tenant}", self._loop,
+                subsystem="serving", start=False)
+            self._thread = thread
+            # started INSIDE the lock: a not-yet-started thread reads
+            # as not alive, so releasing first would let a concurrent
+            # start() mistake it for dead and spawn a second loop (the
+            # new worker just blocks on this same lock until release)
+            thread.start()
+        if self.pipeline_depth > 1:
+            self._start_readback()
+
+    def _start_readback(self):
+        """(Re)start the readback stage, mirroring the worker's
+        revive-in-lock protocol: the exit decision in
+        :meth:`_readback_loop` commits ``_rb_thread = None`` under the
+        ring lock, so here we either see the cleared handle (spawn
+        fresh) or a live thread whose next check reads the
+        ``_rb_quit`` reset (revive in place)."""
+        with self._ring_cv:
+            self._rb_quit = False
+            if self._rb_thread is not None and self._rb_thread.is_alive():
+                self._ring_cv.notify_all()
+                return
+            rb = _obs_threads.spawn(
+                f"pt-serve-rb-{self.tenant}", self._readback_loop,
+                subsystem="serving", start=False)
+            self._rb_thread = rb
+            # started INSIDE the ring lock, same rule as the worker
+            rb.start()
+
+    def swap_model(self, new_model: ServedModel) -> ServedModel:
+        """Hot-swap the served model under the queue lock: the swap is
+        atomic with batch assembly (``_take_batch`` reads ``self.model``
+        under the same condition lock), so every batch executes whole
+        against ONE model — in-flight batches finish on the old
+        executables, the next dequeue serves the new weights. Queued
+        requests carry over untouched: the server-side swap contract
+        requires identical feed/fetch names (enforced by
+        ``PredictorServer.swap_tenant``). Returns the replaced model."""
+        with self._cv:
+            old, self.model = self.model, new_model
+            self._cv.notify_all()
+        return old
+
+    def stop(self, drain: bool = True, timeout: float = 30.0):
+        """Stop the worker; ``drain`` completes queued work first,
+        otherwise the queue fails fast with :class:`ServingClosed`."""
+        with self._cv:
+            if not drain:
+                for req in self._queue:
+                    req.future._complete(error=ServingClosed(
+                        f"tenant {self.tenant!r} stopped"))
+                self._queue.clear()
+            self._stopped = True
+            thread = self._thread
+            self._cv.notify_all()
+        deadline = time.monotonic() + timeout
+        if thread is not None:
+            # the worker clears self._thread itself (under the lock)
+            # when it commits to exit; a drain outliving this join
+            # leaves the handle set so start() revives, never doubles
+            thread.join(timeout=timeout)
+        # the exiting worker set _rb_quit; the readback stage drains
+        # the ring (every dispatched batch completes its futures) and
+        # exits. Shared budget: a timed-out worker drain does not
+        # double the stop() wait.
+        with self._ring_cv:
+            rb = self._rb_thread
+        if rb is not None:
+            rb.join(timeout=max(deadline - time.monotonic(), 0.0))
+
+    # ------------------------------------------------------------ submit
+    def submit(self, feeds: Dict[str, np.ndarray],
+               deadline_ms: Optional[float] = None,
+               edf_scale: Optional[float] = None,
+               external_id: Optional[str] = None) -> PredictionFuture:
+        enforce(set(feeds) == set(self.model.feed_names),
+                f"tenant {self.tenant!r} expects feeds "
+                f"{self.model.feed_names}, got {sorted(feeds)}",
+                InvalidArgumentError)
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms
+        req = Request(self.tenant, feeds, deadline_ms,
+                      edf_scale=edf_scale, external_id=external_id)
+        with self._cv:
+            if self._stopped:
+                raise ServingClosed(f"tenant {self.tenant!r} stopped")
+            self._queue.append(req)
+            depth = len(self._queue)
+            self._cv.notify_all()
+        _metrics.counter_add("serving/requests")
+        _metrics.counter_add(f"serving/requests/{self.tenant}")
+        _metrics.gauge_set(f"serving/queue_depth/{self.tenant}", depth)
+        _metrics.hist_observe(f"serving/queue_depth_seen/{self.tenant}",
+                              depth)
+        return req.future
+
+    def queue_depth(self) -> int:
+        with self._cv:
+            return len(self._queue)
+
+    # ------------------------------------------------------ worker loop
+    # pta5xx: holds(TenantScheduler._cv)
+    def _expire_locked(self, now: float) -> List[Request]:
+        live, dead = [], []
+        for req in self._queue:
+            (dead if req.expired(now) else live).append(req)
+        self._queue[:] = live
+        return dead
+
+    def _fail_expired(self, dead: List[Request]):
+        for req in dead:
+            _metrics.counter_add("serving/deadline_expired")
+            _metrics.counter_add(
+                f"serving/deadline_expired/{self.tenant}")
+            _metrics.hist_observe(
+                f"serving/queue_wait_ms/{self.tenant}",
+                (time.monotonic() - req.t_submit) * 1e3)
+            req.future.timing = {"t_submit": req.t_submit,
+                                 "t_done": time.monotonic()}
+            req.future._complete(error=DeadlineExceeded(
+                f"request {req.id} expired after "
+                f"{(time.monotonic() - req.t_submit) * 1e3:.1f} ms "
+                f"in the {self.tenant!r} queue"))
+
+    def _take_batch(self) -> Optional[tuple]:
+        """Block for work; returns ``(model, bucket, [requests])`` or
+        None on stop. All queue surgery happens under the condition
+        lock — including the MODEL snapshot: the bucket was resolved
+        against this model's policy, and a concurrent ``swap_model``
+        must never let the batch execute against the replacement (a
+        foreign bucket on the new model would compile post-arm —
+        steady churn — or fail an exported artifact outright)."""
+        with self._cv:
+            while True:
+                now = time.monotonic()
+                dead = self._expire_locked(now)
+                if dead:
+                    # completing a future only sets its event — safe
+                    # under the lock, and expiry must precede dequeue
+                    self._fail_expired(dead)
+                    continue
+                if self._queue:
+                    break
+                if self._stopped:
+                    # commit to exit UNDER the lock: start() checks the
+                    # handle under the same lock, so it either sees the
+                    # cleared handle (spawns fresh) or a live worker
+                    # whose next check reads its _stopped reset (revive)
+                    self._thread = None
+                    return None
+                self._cv.wait(timeout=0.1)
+            self._queue.sort(key=_edf_key)
+            head = self._queue[0]
+            bucket = self._resolve_bucket(head)
+            if bucket is None:          # strict policy: reject, move on
+                self._queue.pop(0)
+                head.future.timing = {"t_submit": head.t_submit,
+                                      "t_done": time.monotonic()}
+                head.future._complete(error=InvalidArgumentError(
+                    f"request {head.id} fits no declared bucket of "
+                    f"tenant {self.tenant!r} (strict_buckets)"))
+                _metrics.counter_add("serving/bucket_rejected")
+                return (self.model, None, [])
+            # linger while the bucket is underfull and the queue can
+            # still grow — but never past the head's deadline slack
+            deadline = time.monotonic() + min(
+                self.max_linger_s, head.slack_s(time.monotonic()))
+            while (self._batch_rows_locked(bucket) < bucket.batch
+                   and not self._stopped):
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cv.wait(timeout=remaining)
+            # the linger may have outlived deadlines — of the head, or
+            # of requests that arrived during the wait; an expired
+            # request must complete DeadlineExceeded, never execute
+            dead = self._expire_locked(time.monotonic())
+            if dead:
+                self._fail_expired(dead)
+            # arrivals during the linger appended unsorted: re-sort so
+            # the fill below hands the bucket's last rows to the
+            # tightest deadlines, not to whoever queued first
+            self._queue.sort(key=_edf_key)
+            taken, rows = [], 0
+            for req in list(self._queue):
+                if rows + req.rows > bucket.batch:
+                    continue
+                if bucket.fits(req.sig, rows=rows + req.rows):
+                    taken.append(req)
+                    rows += req.rows
+            for req in taken:
+                self._queue.remove(req)
+            _metrics.gauge_set(f"serving/queue_depth/{self.tenant}",
+                               len(self._queue))
+            return (self.model, bucket, taken)
+
+    # pta5xx: holds(TenantScheduler._cv)
+    def _batch_rows_locked(self, bucket: Bucket) -> int:
+        rows = 0
+        for req in self._queue:
+            if bucket.fits(req.sig, rows=rows + req.rows):
+                rows += req.rows
+        return rows
+
+    def _resolve_bucket(self, head: Request) -> Optional[Bucket]:
+        bucket, learned = self.model.policy.resolve(head.sig)
+        if bucket is not None:
+            if learned:
+                _metrics.counter_add("serving/buckets_learned")
+            return bucket
+        if self.strict_buckets:
+            return None
+        # frozen set, unmatched signature, lenient policy: serve it via
+        # a forced learned bucket — the compile is counted as
+        # serving/steady_compiles, which is exactly the regression
+        # signal the servegate watches
+        _metrics.counter_add("serving/buckets_learned_post_freeze")
+        return self.model.policy.learn(head.sig)
+
+    def _loop(self):
+        try:
+            while True:
+                got = self._take_batch()
+                if got is None:
+                    return
+                model, bucket, batch = got
+                if not batch:
+                    continue
+                self._execute(model, bucket, batch)
+        finally:
+            # worker exit (stop, or crash) releases the readback
+            # stage: it drains the ring — every dispatched batch still
+            # completes its futures — then commits its own exit
+            with self._ring_cv:
+                self._rb_quit = True
+                self._ring_cv.notify_all()
+
+    # ----------------------------------------------------------- execute
+    def _pad_concat(self, bucket: Bucket,
+                    batch: List[Request]) -> Dict[str, np.ndarray]:
+        feeds = {}
+        for n, (bshape, bdt) in bucket.spec.items():
+            parts = []
+            for req in batch:
+                a = np.asarray(req.feeds[n], dtype=np.dtype(bdt))
+                pad = [(0, 0)] + [(0, b - d) for d, b in
+                                  zip(a.shape[1:], bshape[1:])]
+                parts.append(np.pad(a, pad) if any(p[1] for p in pad)
+                             else a)
+            feeds[n] = np.concatenate(parts, axis=0) if parts else \
+                np.zeros(bshape, np.dtype(bdt))
+        return bucket.pad(feeds)
+
+    def _execute(self, model: ServedModel, bucket: Bucket,
+                 batch: List[Request]):
+        """Dispatch stage (worker thread): host pad/concat + device
+        staging + async dispatch. The readback wait — and
+        everything downstream of it (slicing, future completion,
+        latency metrics) — runs in :meth:`_complete`, inline when
+        serial (``pipeline_depth <= 1``) or on the readback thread
+        when pipelined, so the worker is already padding batch k+1
+        while the device executes batch k."""
+        t0 = time.monotonic()
+        rows = sum(req.rows for req in batch)
+        for req in batch:
+            # chaos hook: slow@ms=M,request=N stalls the batch holding
+            # request N — deadline/straggler behavior under injected load
+            _faults.on_request(req.id)
+            _metrics.hist_observe(
+                f"serving/queue_wait_ms/{self.tenant}",
+                (t0 - req.t_submit) * 1e3)
+        try:
+            # exact per-fetch batch-major flags (the bucket's shape
+            # probe, memoized or read from the executable cache)
+            slicing = model.out_slicing(bucket)
+            # request ids in the span args AND the flight event: a
+            # flight dump / chrome trace names the exact requests a
+            # batch carried, so the gateway's per-request timeline can
+            # be joined against the device-side record
+            req_ids = [req.wire_id for req in batch]
+            # round-robin replica routing: batch k of a replica-packed
+            # tenant lands on replica k mod n (model.stage commits the
+            # padded feeds to that device before dispatch)
+            self._batch_seq += 1
+            replica = self._batch_seq - 1
+            with _tracer.maybe_span("serving/batch", tenant=self.tenant,
+                                    bucket=bucket.key, rows=rows,
+                                    request_ids=",".join(
+                                        str(i) for i in req_ids)):
+                outs = model.run_padded(
+                    bucket, self._pad_concat(bucket, batch),
+                    replica=replica)
+                # the copies to the host, enqueued behind the batch on
+                # this thread's stream; _complete waits on their event
+                readback = model.readback(outs)
+        except Exception as e:          # noqa: BLE001 - per-request fate
+            _metrics.counter_add("serving/batch_errors")
+            for req in batch:
+                req.future.timing = {"t_submit": req.t_submit,
+                                     "t_exec": t0,
+                                     "t_done": time.monotonic()}
+                req.future._complete(error=e)
+            return
+        item = (model, bucket, batch, readback, t0, rows, req_ids,
+                slicing)
+        t1 = time.monotonic()
+        pushed = False
+        depth = 1
+        if self.pipeline_depth > 1:
+            with self._ring_cv:
+                def _rb_alive():
+                    return (self._rb_thread is not None
+                            and self._rb_thread.is_alive())
+                while self._inflight >= self.pipeline_depth and \
+                        not self._rb_quit and _rb_alive():
+                    # backpressure: never more than pipeline_depth
+                    # batches in flight — the only wait left on the
+                    # dispatch loop
+                    self._ring_cv.wait(timeout=0.05)
+                # aliveness re-checked UNDER the lock the readback's
+                # exit commit holds: a dead/exiting stage must never
+                # be handed a batch (its futures would strand) — the
+                # worker completes inline instead
+                if _rb_alive():
+                    self._inflight += 1
+                    depth = self._inflight
+                    self._ring.append(item)
+                    self._ring_cv.notify_all()
+                    pushed = True
+        if not pushed:
+            # serial (or readback unavailable): the readback blocks
+            # THIS loop — that wait is the dispatch stall the
+            # pipelined mode exists to hide
+            self._complete(*item)
+            _metrics.hist_observe(
+                f"serving/dispatch_stall_ms/{self.tenant}",
+                (time.monotonic() - t1) * 1e3)
+            return
+        # observed pipeline depth: >1 means a batch was dispatched
+        # while a previous one was still executing/reading back — the
+        # overlap the meshserve gate asserts
+        _metrics.hist_observe("serving/pipeline_depth", depth)
+        _metrics.hist_observe(
+            f"serving/pipeline_depth/{self.tenant}", depth)
+        _metrics.hist_observe(
+            f"serving/dispatch_stall_ms/{self.tenant}",
+            (time.monotonic() - t1) * 1e3)
+
+    def _readback_loop(self):
+        """Readback stage: completes dispatched batches' futures off
+        the dispatch loop's critical path, strictly in dispatch order
+        (FIFO ring, one reader — completion order is deterministic
+        regardless of per-batch device timing)."""
+        while True:
+            with self._ring_cv:
+                while not self._ring and not self._rb_quit:
+                    self._ring_cv.wait(timeout=0.1)
+                if self._ring:
+                    item = self._ring.popleft()
+                else:
+                    # quit + drained ring: commit exit under the lock
+                    # (same protocol as the worker — _start_readback
+                    # either sees the cleared handle or revives a live
+                    # thread)
+                    self._rb_thread = None
+                    return
+            try:
+                self._complete(*item)
+            finally:
+                with self._ring_cv:
+                    self._inflight -= 1
+                    self._ring_cv.notify_all()
+
+    def _complete(self, model: ServedModel, bucket: Bucket,
+                  batch: List[Request], readback, t0: float, rows: int,
+                  req_ids, slicing):
+        """Readback + completion for one dispatched batch: wait for the
+        batch's host copies (``Readback.wait``), slice rows per request,
+        complete the futures, record the batch metrics."""
+        t_wait = time.monotonic()
+        try:
+            outs = readback.wait()
+        except Exception as e:          # noqa: BLE001 - per-request fate
+            _metrics.counter_add("serving/batch_errors")
+            for req in batch:
+                req.future.timing = {"t_submit": req.t_submit,
+                                     "t_exec": t0,
+                                     "t_done": time.monotonic()}
+                req.future._complete(error=e)
+            return
+        _metrics.hist_observe(
+            f"serving/readback_wait_ms/{self.tenant}",
+            (time.monotonic() - t_wait) * 1e3)
+        dur_ms = (time.monotonic() - t0) * 1e3
+        _metrics.counter_add("serving/batches")
+        _metrics.counter_add(f"serving/batches/{self.tenant}")
+        _metrics.hist_observe(f"serving/batch_exec_ms/{self.tenant}",
+                              dur_ms)
+        _metrics.hist_observe(f"serving/batch_occupancy/{self.tenant}",
+                              rows / max(bucket.batch, 1))
+        # per-BUCKET occupancy: which padded shape wastes rows — the
+        # signal for re-declaring bucket sizes (obs_report serving
+        # section per-tenant `buckets`; bench records ride it too)
+        _metrics.hist_observe(
+            f"serving/bucket_occupancy/{self.tenant}/{bucket.key}",
+            rows / max(bucket.batch, 1))
+        _flight.record("serving_batch", tenant=self.tenant,
+                       bucket=bucket.key, rows=rows,
+                       requests=len(batch), dur_ms=round(dur_ms, 3),
+                       request_ids=req_ids)
+        flags = slicing
+        start = 0
+        now = time.monotonic()
+        for req in batch:
+            sliced = [o[start:start + req.rows] if flags[i] else o
+                      for i, o in enumerate(outs)]
+            start += req.rows
+            latency_ms = (now - req.t_submit) * 1e3
+            _metrics.hist_observe("serving/request_latency_ms",
+                                  latency_ms)
+            _metrics.hist_observe(
+                f"serving/request_latency_ms/{self.tenant}", latency_ms)
+            _metrics.counter_add("serving/completed")
+            _metrics.counter_add(f"serving/completed/{self.tenant}")
+            req.future.timing = {"t_submit": req.t_submit,
+                                 "t_exec": t0, "t_done": now}
+            req.future._complete(result=sliced)
+        if self._on_batch is not None:
+            self._on_batch(self.tenant, bucket, batch, dur_ms)

@@ -1,0 +1,356 @@
+"""PredictorServer: the multi-tenant serving plane entry point.
+
+Port of ``paddle_tpu/serving/server.py``, whole but for the
+multi-device half of :meth:`PredictorServer.place` (the port's
+``ServingMesh`` is one device; ROADMAP Queue 1 item 8) and the SLO and
+action-policy cross-lint of ``start`` (ROADMAP Queue 1 item 11). Every
+tenant runs on :func:`paddle_tpu_torch.device.get_device`, which raises
+when there is no card and the caller has not asked for the CPU.
+
+The reference serves one AnalysisPredictor per model per thread pool;
+this server is the TPU-era shape of the same layer (PAPER.md layer 7)
+built for the repo's production stack: each *tenant* is an admitted
+:class:`~paddle_tpu.serving.model.ServedModel` behind its own
+continuous-batching :class:`~paddle_tpu.serving.scheduler
+.TenantScheduler`, all sharing one persistent
+:class:`~paddle_tpu.serving.cache.ExecutableCache`.
+
+Lifecycle::
+
+    srv = PredictorServer(cache_dir="/var/cache/paddle_tpu_torch")
+    srv.add_tenant("ranker", "/models/ranker",
+                   buckets=[{"x": (8, 16)}, {"x": (32, 16)}])
+    srv.add_tenant("tagger", "/models/tagger")      # buckets learned
+    srv.start()
+    out = srv.predict("ranker", {"x": batch}, deadline_ms=50)
+    ...
+    srv.freeze()        # end of warmup: bucket sets are now closed
+    ...
+    srv.stop()
+
+``add_tenant`` is the admission gate: a model whose program carries
+error-severity PTAxxx diagnostics raises
+:class:`~paddle_tpu.serving.admission.AdmissionError` and never joins
+the serving set. Declared buckets are prewarmed at add time (prepared,
+or warm-booted from the cache), so admitted tenants take traffic with a
+cold path already paid.
+"""
+from __future__ import annotations
+
+import sys
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+from ..core.enforce import InvalidArgumentError, enforce
+from ..core.flags import get_flag
+from ..observability import flight_recorder as _flight
+from ..observability import metrics as _metrics
+from . import placement as _placement
+from .cache import ExecutableCache
+from .model import ServedModel
+from .scheduler import PredictionFuture, TenantScheduler
+from .. import concurrency as _concurrency
+
+
+class PredictorServer:
+    """Multi-tenant continuous-batching predictor server.
+
+    With a :class:`~paddle_tpu_torch.serving.placement.ServingMesh` (one
+    device) :meth:`place`, run at :meth:`freeze`, pins every tenant to
+    that device as a replica and records the decisions in the flight
+    recorder."""
+
+    def __init__(self, cache_dir: Optional[str] = None,
+                 max_linger_ms: Optional[float] = None,
+                 mesh: Optional["_placement.ServingMesh"] = None,
+                 pipeline_depth: Optional[int] = None):
+        if cache_dir is None:
+            cache_dir = str(get_flag("serving_exec_cache_dir")) or None
+        if max_linger_ms is None:
+            max_linger_ms = float(get_flag("serving_max_linger_ms"))
+        self.cache = ExecutableCache(cache_dir)
+        self.max_linger_ms = float(max_linger_ms)
+        self.pipeline_depth = pipeline_depth
+        self.mesh = mesh
+        self._placement_specs: Dict[str, dict] = {}
+        self._placed = False
+        self._tenants: Dict[str, TenantScheduler] = {}
+        self._started = False
+        # registry lock: add_tenant mutates the dict while stats() /
+        # start() / freeze() iterate it — an unlocked snapshot under a
+        # concurrent registration can observe a half-registered tenant
+        # (or RuntimeError out of dict iteration). Reentrant: the slow
+        # model load/prewarm happens OUTSIDE it.
+        self._registry_lock = _concurrency.make_lock("PredictorServer._registry_lock", reentrant=True)
+
+    # ------------------------------------------------------------ tenants
+    def add_tenant(self, name: str, model_path: str,
+                   buckets: Optional[Sequence[Dict]] = None, *,
+                   prewarm: bool = True,
+                   strict_buckets: bool = False,
+                   default_deadline_ms: Optional[float] = None,
+                   admission: bool = True,
+                   placement: str = "auto",
+                   replicas: int = 1,
+                   rows: int = 1,
+                   partition_spec: Optional[Dict] = None) -> ServedModel:
+        """Load + admit one model. Raises ``AdmissionError`` when the
+        static analyzer finds error-severity diagnostics; declared
+        ``buckets`` freeze the shape set immediately, otherwise buckets
+        are learned until :meth:`freeze`. ``buckets="auto"`` applies
+        the pow2-rounded declaration the executable cache's prior-boot
+        provenance implies (the PTA3xx suggestion, auto-applied) and
+        falls back to learning on a cold cache.
+
+        With a server mesh, ``placement``, ``replicas``, ``rows`` and
+        ``partition_spec`` are the reference's placement request; on
+        the one-device mesh anything but one replica raises at
+        :meth:`place`."""
+        with self._registry_lock:
+            enforce(name not in self._tenants,
+                    f"tenant {name!r} already registered",
+                    InvalidArgumentError)
+        model = ServedModel(name, model_path, buckets=buckets,
+                            cache=self.cache,
+                            admission_check=admission,
+                            donate_inputs=self.mesh is not None and
+                            bool(get_flag("serving_donate_inputs")))
+        if self.mesh is not None:
+            self._placement_specs[name] = {
+                "kind": str(placement), "replicas": int(replicas),
+                "rows": int(rows), "partition_spec": partition_spec}
+        for d in model.admission.recompile_hazards:
+            # PTA3xx at load time is the operator's cue to declare
+            # buckets — surfaced here, once, where the fix lives (with
+            # the concrete pow2-rounded buckets=[...] declaration when
+            # the executable cache has prior-boot provenance)
+            sys.stderr.write(f"[paddle_tpu_torch.serving] {d.format()}\n")
+        if prewarm:
+            model.prewarm()
+        if default_deadline_ms is None:
+            # 0-means-disabled for explicit values is normalized by
+            # TenantScheduler itself (the convention's single home)
+            default_deadline_ms = float(
+                get_flag("serving_default_deadline_ms"))
+        sched = TenantScheduler(
+            name, model, max_linger_ms=self.max_linger_ms,
+            default_deadline_ms=default_deadline_ms,
+            strict_buckets=strict_buckets,
+            pipeline_depth=self.pipeline_depth)
+        with self._registry_lock:
+            # re-checked: the slow load above ran unlocked, a racing
+            # add_tenant of the same name must not be clobbered
+            enforce(name not in self._tenants,
+                    f"tenant {name!r} already registered",
+                    InvalidArgumentError)
+            self._tenants[name] = sched
+            n_tenants = len(self._tenants)
+            started = self._started
+        _metrics.gauge_set("serving/tenants", n_tenants)
+        _flight.record("serving_tenant_added", tenant=name,
+                       fingerprint=model.fingerprint[:12],
+                       buckets=[b.key for b in model.policy.buckets])
+        if started:
+            sched.start()
+        return model
+
+    def swap_tenant(self, name: str, model_path: str, *,
+                    prewarm: bool = True,
+                    admission: bool = True) -> ServedModel:
+        """Hot-swap a tenant's weights with zero downtime.
+
+        The replacement model is loaded, admitted and prewarmed COLD
+        PATH FIRST (its preparations are the swap's cost, never steady
+        churn), then swapped under the scheduler's queue lock:
+        in-flight batches finish on the old model, the next batch
+        serves the new weights. The params digest in the cache key
+        keeps old and new entries apart, and the flight event records
+        both fingerprints. Steady accounting re-arms on the new model
+        before the swap, so any LATER preparation is churn again."""
+        sched = self.tenant(name)
+        old = sched.model
+        # a frozen tenant keeps its declared bucket set: the swap must
+        # not reopen the shape policy
+        buckets = None
+        if old.policy.buckets and old.policy.frozen:
+            buckets = [dict(b.spec) for b in old.policy.buckets]
+        model = ServedModel(name, model_path, buckets=buckets,
+                            cache=self.cache, admission_check=admission,
+                            donate_inputs=old.donate_inputs)
+        enforce(list(model.feed_names) == list(old.feed_names) and
+                list(model.fetch_names) == list(old.fetch_names),
+                f"swap_tenant({name!r}): feed/fetch names must match "
+                f"the serving model (old "
+                f"{old.feed_names}->{old.fetch_names}, new "
+                f"{model.feed_names}->{model.fetch_names}) — a "
+                f"different interface is a new tenant, not a weight "
+                f"swap", InvalidArgumentError)
+        if prewarm:
+            model.prewarm()
+        if old.placement is not None:
+            # the replacement inherits the tenant's mesh slot
+            model.set_placement(old.placement)
+        model.arm_steady()
+        sched.swap_model(model)
+        _metrics.counter_add("serving/weight_swaps")
+        _flight.record("serving_weight_swap", tenant=name,
+                       old_fingerprint=old.fingerprint[:12],
+                       new_fingerprint=model.fingerprint[:12])
+        sys.stderr.write(
+            f"[paddle_tpu_torch.serving] tenant {name!r}: weights swapped "
+            f"{old.fingerprint[:12]} -> {model.fingerprint[:12]}\n")
+        return model
+
+    def tenant(self, name: str) -> TenantScheduler:
+        with self._registry_lock:
+            sched = self._tenants.get(name)
+        enforce(sched is not None, f"unknown tenant {name!r}",
+                InvalidArgumentError)
+        return sched
+
+    def tenants(self):
+        with self._registry_lock:
+            return sorted(self._tenants)
+
+    def _schedulers(self):
+        with self._registry_lock:
+            return list(self._tenants.values())
+
+    # ---------------------------------------------------------- lifecycle
+    def start(self) -> "PredictorServer":
+        with self._registry_lock:
+            self._started = True
+            scheds = list(self._tenants.values())
+        for sched in scheds:
+            sched.start()
+        _flight.record("serving_start", tenants=self.tenants())
+        return self
+
+    def stop(self, drain: bool = True):
+        for sched in self._schedulers():
+            sched.stop(drain=drain)
+        self._started = False
+        _flight.record("serving_stop", tenants=self.tenants())
+
+    def place(self):
+        """Pin every tenant to the server mesh's one device as a
+        replica (``placement.pack``), weighted by padded feed volume,
+        and record the decisions. Runs at :meth:`freeze`; callable
+        earlier for declared-bucket fleets that never freeze-learn."""
+        enforce(self.mesh is not None,
+                "place() needs a server mesh: PredictorServer("
+                "mesh=ServingMesh(...))", InvalidArgumentError)
+        with self._registry_lock:
+            items = sorted(self._tenants.items())
+        specs = []
+        for name, sched in items:
+            model = sched.model
+            req = self._placement_specs.get(name) or {}
+            specs.append(_placement.TenantSpec(
+                name, kind=req.get("kind") or "auto",
+                replicas=int(req.get("replicas") or 1),
+                rows=int(req.get("rows") or 1),
+                partition_spec=req.get("partition_spec"),
+                cost=_placement.measured_cost(name, model.policy.buckets),
+                batches=[b.batch for b in model.policy.buckets]))
+        placements = _placement.pack(self.mesh, specs)
+        for name, sched in items:
+            pl = placements.get(name)
+            sched.model.set_placement(pl)
+            sys.stderr.write(
+                f"[paddle_tpu_torch.serving] tenant {name!r}: placed "
+                f"{pl.kind} on device(s) {pl.device_ids} "
+                f"(cost={pl.cost.get('weight', 0):.3g} "
+                f"from {pl.cost.get('source')})\n")
+        _placement.record_decisions(self.mesh, placements)
+        self._placed = True
+        _flight.record("serving_placed", mesh=self.mesh.describe(),
+                       decisions={n: p.to_dict()
+                                  for n, p in placements.items()})
+        return placements
+
+    def freeze(self):
+        """End of warmup: every tenant's bucket set is closed, and —
+        with a server mesh — tenants are placed onto their slices
+        (:meth:`place`, its cold path paid here). From here, any
+        compile is steady-state churn (``serving/steady_compiles``) —
+        the number held at zero by the servegate. Tenants whose
+        buckets were LEARNED get the concrete declaration printed
+        here: the learned set IS the pow2-rounded record of the
+        observed signatures, so the operator can pin it at the next
+        boot's ``add_tenant``."""
+        for sched in self._schedulers():
+            sched.model.policy.freeze()
+        if self.mesh is not None and not self._placed:
+            self.place()
+        for sched in self._schedulers():
+            model = sched.model
+            model.arm_steady()
+            if not model.declared_at_load and model.policy.buckets:
+                from ..analysis.recompile_lint import \
+                    format_bucket_suggestion
+                suggestion = format_bucket_suggestion(
+                    b.spec for b in model.policy.buckets)
+                sys.stderr.write(
+                    f"[paddle_tpu_torch.serving] tenant {model.label!r}: "
+                    f"learned bucket set frozen — declare "
+                    f"{suggestion} at add_tenant to pin it across "
+                    f"boots\n")
+                _flight.record("serving_bucket_suggestion",
+                               tenant=model.label, suggestion=suggestion)
+        _flight.record("serving_freeze", tenants=self.tenants())
+
+    # ------------------------------------------------------------ traffic
+    def submit(self, tenant: str, feeds: Dict[str, np.ndarray],
+               deadline_ms: Optional[float] = None,
+               edf_scale: Optional[float] = None,
+               external_id: Optional[str] = None) -> PredictionFuture:
+        enforce(self._started, "server not started", InvalidArgumentError)
+        return self.tenant(tenant).submit(feeds, deadline_ms=deadline_ms,
+                                          edf_scale=edf_scale,
+                                          external_id=external_id)
+
+    def predict(self, tenant: str, feeds: Dict[str, np.ndarray],
+                deadline_ms: Optional[float] = None,
+                timeout: Optional[float] = 60.0):
+        """Synchronous convenience: submit + wait. Returns the fetch
+        list sliced to the request's rows."""
+        return self.submit(tenant, feeds,
+                           deadline_ms=deadline_ms).result(timeout)
+
+    # -------------------------------------------------------------- stats
+    def stats(self) -> dict:
+        snap = _metrics.snapshot()
+
+        def _count(name):
+            return int(snap.get(name, 0) or 0)
+
+        out = {"tenants": {}, "cache_dir": self.cache.directory,
+               "mesh": (self.mesh.describe()
+                        if self.mesh is not None else None),
+               "compiles": _count("serving/compiles"),
+               "steady_compiles": _count("serving/steady_compiles"),
+               "warm_loads": _count("serving/warm_loads"),
+               "exec_cache": {
+                   "hits": _count("serving/exec_cache_hit"),
+                   "misses": _count("serving/exec_cache_miss"),
+                   "stored": _count("serving/exec_cache_store")}}
+        # snapshot the registry under its lock: a tenant mid-
+        # registration (concurrent add_tenant) must never be observed
+        # half-built, and dict iteration must not race the insert
+        with self._registry_lock:
+            items = sorted(self._tenants.items())
+        for name, sched in items:
+            lat = snap.get(f"serving/request_latency_ms/{name}")
+            out["tenants"][name] = {
+                **sched.model.stats(),
+                "queue_depth": sched.queue_depth(),
+                "requests": _count(f"serving/requests/{name}"),
+                "completed": _count(f"serving/completed/{name}"),
+                "deadline_expired": _count(
+                    f"serving/deadline_expired/{name}"),
+                "batches": _count(f"serving/batches/{name}"),
+                "latency_ms": lat if isinstance(lat, dict) else None,
+            }
+        return out

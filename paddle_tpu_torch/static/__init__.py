@@ -33,8 +33,7 @@ from ..core.enforce import InvalidArgumentError, enforce
 from ..core.program import (Block, Program, VarDesc,  # noqa: F401
                             default_main_program, default_startup_program,
                             program_guard)
-from ..core.registry import OpInfoMap
-from ..device import op_device
+from ..core.registry import OpInfoMap, run_meta
 
 _mode = threading.local()
 
@@ -162,8 +161,7 @@ def _op(block: Block, type_: str, inputs, outputs, attrs):
                                    device="meta"))
         specs[slot] = row
     try:
-        with torch.no_grad(), op_device("meta"):
-            outs = (opdef.infer_meta or opdef.compute)(specs, dict(attrs))
+        outs = run_meta(opdef, specs, attrs)
     except Exception as e:
         # all input shapes were known, so a failure here means the op is
         # genuinely mis-built (bad attr, rank mismatch): fail loudly at

@@ -145,11 +145,32 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
   24. serve_restart: a second server on the same cache directory
      warm-loads every bucket, compiles nothing and answers a repeated
      request with the same bits.
+  25. eager_bert, the main path of the eager slice: BERT-base (fp32, O0,
+     batch 16, seq 128) trained through the eager tape as a user script
+     writes it (eager_step: to_tensor, loss.backward(); opt.step();
+     opt.clear_grad(), then opt.minimize(loss); model.clear_gradients()
+     under dygraph.guard()), 2 warm-up and 5 timed steps, a step that
+     also takes paddle.grad of the word embeddings, and a profiled step:
+     step time, samples/s, peak memory, launches and host syncs; K1 12
+     launches a step and K2 and K3 12 more in the paddle.grad step, the
+     plain versions never; the losses against jit.TrainStep(amp_level=
+     "O0") on the same batches from the same weights, paddle.grad against
+     the gradient backward() leaves, loss.numpy() and param.numpy() on
+     the card, and save_dygraph / load_dygraph into a fresh model giving
+     the same next loss bit for bit;
+  26. tensor_api: the 153 op types the 2.0 tensor API brought, each at
+     the CPU tests' shapes (paddle_tpu_torch/testing/op_cases.py) on the
+     card against the port on the CPU, forward and gradient, with the
+     host syncs of the ops whose output length depends on the data.
+Phase 3 also times K1-K3 in fp16 at BERT-base.
 The last two lines are the kernels' JSON record (each kernel at fp32,
-its launches from phase 7; as <name>_bf16 at bf16, its launches from
-phase 8; as <name>_gpt at GPT-3 1.3B's shape, its launches from phase
-17) and {"ok": true, "device": {...}}. Phase 18 checks its own K1-K3
-launches.
+its launches from phase 7 and, as launches_eager_bert, from phase 25;
+as <name>_bf16 at bf16, its launches from phase 8; as <name>_fp16 at
+fp16, its launches from phase 6's fp16 loop; as <name>_gpt at GPT-3
+1.3B's shape, its launches from phase 17) and {"ok": true, "device":
+{...}}. Phase 18 checks its own K1-K3 launches. The [predictor] line
+says how a bfloat16 fetch comes to the host (ml_dtypes' bfloat16, or
+float32 where ml_dtypes does not import).
 """
 import collections
 import contextlib
@@ -168,7 +189,8 @@ import torch
 
 PEAK_BYTES_S = 3.35e12                       # H100 SXM HBM3
 PEAK_OPS_S = {torch.float32: 67e12,          # fp32, CUDA cores
-              torch.bfloat16: 989e12}        # bf16 dense, tensor cores
+              torch.bfloat16: 989e12,        # bf16 dense, tensor cores
+              torch.float16: 989e12}         # fp16 dense, tensor cores
 # fp32 on the tensor cores as 3xTF32: three TF32 passes at 495 TFLOP/s
 # (timed at fp32 only, what the O1 main path feeds the kernels)
 PEAK_TC_OPS_S = {torch.float32: 495e12 / 3}
@@ -540,10 +562,11 @@ def bound_tf32_passes(kernel, b, s, h, d, causal=False):
 
 def phase_timing(fa, dev, dtype, shape=BERT_SHAPE, n=20):
     """K1-K3 at ``shape`` (B, S, H, D, causal; BERT-base unless given) in
-    ``dtype`` (fp32, what O1 feeds them; bf16, what O2 feeds them): CUDA
-    events (means of ``n`` calls) beside their bound, a second bound
-    (fp32: the CUDA cores; bf16: the TF32 passes the kernels run), their
-    plain versions and SDPA in the same dtype."""
+    ``dtype`` (fp32, what O1 feeds them; bf16, what O2 feeds them; fp16,
+    what O2 with GradScaler feeds them): CUDA events (means of ``n``
+    calls) beside their bound, a second bound (fp32: the CUDA cores;
+    bf16 and fp16: the TF32 passes the kernels run), their plain
+    versions and SDPA in the same dtype."""
     b, s, h, d, causal = shape
     gen = torch.Generator(device=dev).manual_seed(7)
     q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
@@ -590,8 +613,8 @@ def phase_timing(fa, dev, dtype, shape=BERT_SHAPE, n=20):
             yard = "bound_fp32_cores"
             y_ms, y_by = bound(name, b, s, h, d, dtype, causal=causal)
         else:
-            # the function's own products at the bf16 tensor-core rate
-            units = "tensor cores, bf16 rate"
+            # the function's own products at the 16-bit tensor-core rate
+            units = f"tensor cores, {dname} rate"
             bound_ms, bound_by = bound(name, b, s, h, d, dtype,
                                        causal=causal)
             # the TF32 passes the kernels run on bf16 inputs
@@ -955,6 +978,8 @@ def phase_tiny_o2(tpt, fa, dev):
               f"worst {err:.3e} ({worst}), median {median:.3e} (bound "
               f"{O2_UPDATE_TOL:g})")
         check(err <= O2_UPDATE_TOL, f"{dtype} O2 masters disagree: {worst}")
+    # the fp16 loop's launches: the fp16 rows of the kernels record
+    return dict(zip((w.__name__ for w in fa.WRAPPERS), launches))
 
 
 def phase_bert_o2(tpt, fa, dev):
@@ -3096,7 +3121,35 @@ def phase_predictor(tpt, fa, dev, workdir):
                      f"CPU's")
         check(launches == (1 if name == "attn" else 0),
               f"{name}: K1 launched {launches} times in one run")
+    bf16_fetch_route(dev)
     return paths
+
+
+def bf16_fetch_route(dev):
+    """How a bfloat16 fetch comes to the host on the card: through
+    ``core.dtype.host_array`` (Predictor) and the serving ``Readback``
+    (pinned copies of the int16 words), as ml_dtypes' bfloat16 with the
+    tensor's own bytes where ml_dtypes imports, else as float32."""
+    from paddle_tpu_torch.core import dtype as dtypes
+    from paddle_tpu_torch.serving.model import Readback
+    t = (torch.arange(24, device=dev, dtype=torch.float32) / 7).reshape(
+        4, 6).to(torch.bfloat16)
+    direct = dtypes.host_array(t)
+    served, = Readback([t]).wait()
+    words = t.view(torch.int16).cpu().numpy().tobytes()
+    if dtypes.NP_BFLOAT16 is None:
+        route = "float32 (ml_dtypes does not import)"
+        ok = all(a.dtype == np.float32 and np.array_equal(
+            a, t.float().cpu().numpy()) for a in (direct, served))
+    else:
+        import ml_dtypes
+        route = f"bfloat16 (ml_dtypes {ml_dtypes.__version__})"
+        ok = all(a.dtype == dtypes.NP_BFLOAT16 and a.tobytes() == words
+                 for a in (direct, served))
+    print(f"[predictor] a bfloat16 fetch comes to the host as {route}: "
+          f"Predictor and serving Readback "
+          f"{'agree with' if ok else 'DIFFER FROM'} the tensor's bytes")
+    check(ok, "bfloat16 fetch")
 
 
 def _serve_tenants(srv, paths):
@@ -3456,6 +3509,288 @@ def phase_serve_restart(tpt, dev, paths, workdir, served, cold):
           "the restarted server answers differently")
 
 
+
+# ---------------------------------------------------- the eager tensor API
+EAGER_BERT = dict(batch=16, seq=128, warmup=2, steps=5, lr=1e-4)
+# the styles of the steps after the warm-up: 2.0 (backward, step,
+# clear_grad) then 1.x (minimize, clear_gradients under dygraph.guard)
+EAGER_STYLES = ("2.0", "2.0", "1.x", "1.x", "1.x")
+# eager against TrainStep O0: the same kernels on the same inputs in the
+# same order (TrainStep runs loss.backward() and the optimizer's own
+# functional_step, as opt.step() does), so the losses are expected equal
+# bit for bit; the bound leaves room for one reordered reduction
+EAGER_VS_TRAINSTEP_RTOL = 1e-6
+# paddle.grad and backward() walk the same graph: equal, expected bit for
+# bit, held within 1e-6 of the gradient's largest element
+EAGER_GRAD_RTOL = 1e-6
+
+
+def port_eager_api():
+    """The port's eager surface as the user script below takes it (the CPU
+    test hands it the JAX package's)."""
+    import types
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.text.models import BertForPretraining
+    return types.SimpleNamespace(pt=pt, to_tensor=pt.to_tensor, grad=pt.grad,
+                                 dygraph=dygraph, Momentum=Momentum,
+                                 Bert=BertForPretraining)
+
+
+def eager_batches(n, batch, seq, vocab, seed=0):
+    """bench.py's synthetic batches from seeded numpy: int32 ids, 15% MLM
+    labels (-1 elsewhere, at least one a row) and an NSP label."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rs.randint(0, vocab, (batch, seq)).astype(np.int32)
+        labels = np.where(rs.rand(batch, seq) < 0.15, ids, -1).astype(
+            np.int32)
+        labels[:, 0] = ids[:, 0]
+        out.append((ids, labels, rs.randint(0, 2, (batch, 1)).astype(
+            np.int32)))
+    return out
+
+
+def eager_step(api, model, opt, batch, style, grad_of=None):
+    """One training step written as Paddle users write eager training:
+    ``to_tensor`` of the numpy batch, the loss, then ``loss.backward();
+    opt.step(); opt.clear_grad()`` (style "2.0") or, under
+    ``dygraph.guard()``, ``opt.minimize(loss); model.clear_gradients()``
+    (style "1.x"). With ``grad_of`` (a parameter, 2.0 style) it first
+    takes ``paddle.grad(loss, [grad_of], retain_graph=True)`` and returns
+    it beside ``grad_of.gradient()`` from the backward on the same
+    graph."""
+    ids, labels, nsp = (api.to_tensor(a) for a in batch)
+    if style == "1.x":
+        with api.dygraph.guard():
+            loss = model(ids, masked_lm_labels=labels,
+                         next_sentence_label=nsp)
+            opt.minimize(loss)
+            model.clear_gradients()
+        return loss, None
+    loss = model(ids, masked_lm_labels=labels, next_sentence_label=nsp)
+    pair = None
+    if grad_of is not None:
+        (g,) = api.grad(loss, [grad_of], retain_graph=True)
+    loss.backward()
+    if grad_of is not None:
+        pair = (g.numpy(), grad_of.gradient())
+    opt.step()
+    opt.clear_grad()
+    return loss, pair
+
+
+def phase_eager_bert(tpt, fa, dev):
+    """The main path of the eager slice: BERT-base (text.models widths,
+    dropout 0) trained in fp32 at O0 through the eager tape, as a user
+    script writes it (eager_step), at batch 16, seq 128: 2 warm-up steps,
+    5 timed ones (2.0 then 1.x style), one step that also takes
+    paddle.grad of the word embeddings, one profiled step; then the same
+    batches through jit.TrainStep(amp_level="O0") from the same weights;
+    then save_dygraph / load_dygraph into a fresh model."""
+    from paddle_tpu_torch.jit import TrainStep
+    cfg = EAGER_BERT
+    api = port_eager_api()
+    tpt.set_device(dev)
+    tpt.seed(0)
+    t0 = time.perf_counter()
+    model = api.Bert(dropout=0.0)
+    state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = api.Momentum(learning_rate=cfg["lr"], momentum=0.9,
+                       parameters=model.parameters())
+    n_steps = cfg["warmup"] + cfg["steps"] + 1
+    vocab = model.bert.embeddings.word.weight.shape[0]
+    batches = eager_batches(n_steps + 2, cfg["batch"], cfg["seq"], vocab)
+    styles = ["2.0"] * cfg["warmup"] + list(EAGER_STYLES) + ["2.0"]
+    word = model.bert.embeddings.word.weight
+    torch.cuda.synchronize()
+    print(f"[eager_bert] BERT-base fp32 O0, built in "
+          f"{time.perf_counter() - t0:.1f} s; step styles {styles}")
+    for w in fa.WRAPPERS:
+        w.launches = 0
+    fa.blockwise_route.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, pair = [], None
+    for i in range(cfg["warmup"]):
+        losses.append(eager_step(api, model, opt, batches[i], styles[i])[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(cfg["warmup"], cfg["warmup"] + cfg["steps"]):
+        losses.append(eager_step(api, model, opt, batches[i], styles[i])[0])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / cfg["steps"]
+    loss, pair = eager_step(api, model, opt, batches[n_steps - 1], "2.0",
+                            grad_of=word)
+    losses.append(loss)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in fa.WRAPPERS}
+    calls = fa.blockwise_route.calls
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x.numpy()) for x in losses]
+    prof = profile_call(lambda: losses.append(float(eager_step(
+        api, model, opt, batches[n_steps], "2.0")[0].numpy())))
+    g, wgrad = pair
+    print(f"[eager_bert] losses {losses}")
+    print(f"[eager_bert] step_ms {step_s * 1e3:.3f}  samples/s "
+          f"{cfg['batch'] / step_s:.2f}  peak_mem {peak:.3f} GiB")
+    print(f"[eager_bert] one profiled step: {prof['launches']} kernel "
+          f"launches, {prof['syncs']} host syncs (cudaStreamSynchronize), "
+          f"device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
+          f"(idle share {1 - prof['busy_ms'] / prof['wall_ms']:.3f}); CUDA "
+          f"runtime calls: " + ", ".join(
+              f"{k} {v}" for k, v in prof["runtime"].most_common(6)))
+    print(f"[eager_bert] launches over {n_steps} steps: {launches} "
+          f"(expected K1 {12 * n_steps}, K2 and K3 {12 * n_steps + 12}: the "
+          f"paddle.grad step runs a second backward); blockwise-route "
+          f"calls {calls}")
+    gerr = float(np.abs(g - wgrad).max())
+    print(f"[eager_bert] paddle.grad of the word embeddings against its "
+          f".gradient() from backward on the same graph: max abs diff "
+          f"{gerr:.3e} (|grad| max {float(np.abs(wgrad).max()):.3e})")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    check(abs(losses[0] - (math.log(vocab) + math.log(2))) < 2.0,
+          "first loss far from ln(vocab) + ln(2)")
+    check(launches == {"flash_fwd": 12 * n_steps,
+                       "flash_bwd_dq": 12 * n_steps + 12,
+                       "flash_bwd_dkv": 12 * n_steps + 12} and calls == 0,
+          "K1-K3 not launched once a layer a pass, or the plain versions "
+          "ran")
+    check(g.shape == wgrad.shape and gerr <= EAGER_GRAD_RTOL * float(
+        np.abs(wgrad).max()), "paddle.grad differs from backward's gradient")
+    params = word.numpy()
+    check(params.dtype == np.float32 and np.isfinite(params).all(),
+          "param.numpy() on the card")
+
+    # the same batches through TrainStep O0 from the same weights
+    ref = api.Bert(dropout=0.0)
+    ref.set_state_dict(state0)
+    train = TrainStep(ref, step_fn, api.Momentum(
+        learning_rate=cfg["lr"], momentum=0.9,
+        parameters=ref.parameters()), amp_level="O0").ensure_state()
+    want = [float(train(*batches[i]).numpy())
+            for i in range(cfg["warmup"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [train(*batches[i]) for i in range(cfg["warmup"],
+                                              cfg["warmup"] + cfg["steps"])]
+    torch.cuda.synchronize()
+    ts_s = (time.perf_counter() - t0) / cfg["steps"]
+    want += [float(x.numpy()) for x in out]
+    want += [float(train(*batches[i]).numpy())
+             for i in range(n_steps - 1, n_steps + 1)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    print(f"[eager_bert] TrainStep O0 losses {want}")
+    print(f"[eager_bert] TrainStep O0 step_ms {ts_s * 1e3:.3f} (eager "
+          f"{step_s * 1e3:.3f}: {step_s / ts_s:.3f}x); losses eager against "
+          f"TrainStep: {'equal bit for bit' if losses == want else 'DIFFER'}"
+          f", max relative difference {rel:.3e} (bound "
+          f"{EAGER_VS_TRAINSTEP_RTOL:g})")
+    check(rel <= EAGER_VS_TRAINSTEP_RTOL, "eager losses off TrainStep's")
+
+    # save_dygraph / load_dygraph into a fresh model: the next loss
+    path = "build/eager_bert/params"
+    api.dygraph.save_dygraph(model.state_dict(), path)
+    state, _ = api.dygraph.load_dygraph(path)
+    fresh = api.Bert(dropout=0.0)
+    missing = fresh.set_state_dict(state)
+    nxt = tuple(api.to_tensor(a) for a in batches[n_steps + 1])
+    with api.dygraph.no_grad():
+        a = model(nxt[0], masked_lm_labels=nxt[1], next_sentence_label=nxt[2])
+        b = fresh(nxt[0], masked_lm_labels=nxt[1], next_sentence_label=nxt[2])
+    print(f"[eager_bert] save_dygraph / load_dygraph: {len(state)} tensors, "
+          f"missing {missing}; next loss {float(a.numpy())!r} original, "
+          f"{float(b.numpy())!r} reloaded; {card_line()}")
+    check(not missing and torch.equal(a, b),
+          "the reloaded model's loss differs")
+    shutil.rmtree("build/eager_bert", ignore_errors=True)
+    return launches
+
+
+def _op_case_run(case, device):
+    """One case of op_cases through the port's op on ``device``: its
+    outputs and (``grad``) the gradients for seeded cotangents on its
+    float outputs, all moved to the CPU."""
+    from paddle_tpu_torch.core.registry import OpInfoMap, generic_vjp_grad
+    from paddle_tpu_torch.device import op_device
+    opdef = OpInfoMap.instance().get(case.op)
+    ins = {s: [torch.from_numpy(np.array(v)).to(device) for v in vs]
+           for s, vs in case.inputs.items()}
+    with op_device(device):
+        outs = opdef.compute(ins, dict(case.attrs))
+        grads = {}
+        if case.grad:
+            rs = np.random.RandomState(99)
+            cts = {s: [torch.from_numpy(np.asarray(
+                rs.randn(*v.shape), np.float32)).to(device) for v in vs]
+                for s, vs in outs.items()
+                if s not in opdef.intermediate_outputs and s != "XShape"
+                and any(v.is_floating_point() for v in vs)}
+            grads = generic_vjp_grad(opdef, ins, {}, cts, dict(case.attrs))
+    cpu = {s: [v.detach().cpu() for v in vs] for s, vs in outs.items()}
+    cpu.update({"d" + s: [v.cpu() for v in vs if v is not None]
+                for s, vs in grads.items()})
+    return cpu
+
+
+def phase_tensor_api(dev):
+    """Every op type the 2.0 tensor API brought (153) on the card against
+    the port on the CPU, at the CPU tests' shapes (op_cases), TF32 off:
+    integer and bool outputs equal, float ones and the gradients at each
+    case's bound; random ops draw on the CPU and move, so their draws
+    are equal too, and each is held by its range and moments; empty by
+    shape and dtype. Host syncs of the ops whose output length depends
+    on the data are counted."""
+    from paddle_tpu_torch.testing.op_cases import CASES
+    types_seen, worst = set(), {}
+    for case in CASES:
+        card, cpu = _op_case_run(case, dev), _op_case_run(case, "cpu")
+        check(set(card) == set(cpu), f"{case.id}: slots differ")
+        for slot, wants in cpu.items():
+            check(len(card[slot]) == len(wants), f"{case.id}.{slot}")
+            for got, want in zip(card[slot], wants):
+                what = f"{case.id}.{slot}"
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"{what}: {got.shape} {got.dtype} on the card, "
+                      f"{want.shape} {want.dtype} on the CPU")
+                if case.kind == "shape":
+                    continue
+                if case.kind == "random":
+                    check(torch.equal(got, want) and
+                          case.check(want.numpy()), f"{what}: draws")
+                elif want.is_floating_point():
+                    rtol, atol = case.grad_tol if slot.startswith("d") \
+                        else case.tol
+                    ok = torch.allclose(got, want, rtol=rtol, atol=atol,
+                                        equal_nan=True)
+                    err = (got - want).abs().nan_to_num().max().item() \
+                        if want.numel() else 0.0
+                    worst[what] = err
+                    check(ok, f"{what}: max abs {err:.3e} past rtol {rtol:g}"
+                              f" atol {atol:g}")
+                else:
+                    check(torch.equal(got, want), f"{what} differs")
+        types_seen.add(case.op)
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    syncs = {}
+    for case in CASES:
+        if case.op in ("where_index", "masked_select", "unique",
+                       "unique_with_counts") and case.op not in syncs:
+            ins = {s: [torch.from_numpy(np.array(v)).to(dev) for v in vs]
+                   for s, vs in case.inputs.items()}
+            compute = OpInfoMap.instance().get(case.op).compute
+            syncs[case.op] = profile_call(
+                lambda: compute(ins, dict(case.attrs)))["syncs"]
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[tensor_api] {len(CASES)} cases of {len(types_seen)} op types "
+          f"on the card against the CPU: all agree; largest float errors "
+          + ", ".join(f"{k} {v:.2e}" for k, v in top)
+          + f"; host syncs of one call on inputs already on the card "
+          f"{syncs}")
+    check(len(types_seen) == 153, f"{len(types_seen)} op types checked")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3476,13 +3811,14 @@ def main():
     phase_determinism(fa, dev)
     phase_fp64(fa, dev)
     rows = {dt: phase_timing(fa, dev, dt)
-            for dt in (torch.float32, torch.bfloat16)}
+            for dt in (torch.float32, torch.bfloat16, torch.float16)}
     gpt_rows, gpt_errs = phase_gpt_kernels(fa, dev)
     phase_flash_route(fa, dev)
     phase_tiny(tpt, dev)
-    phase_tiny_o2(tpt, fa, dev)
+    fp16_launches = phase_tiny_o2(tpt, fa, dev)
     launches = {torch.float32: phase_bert(tpt, fa, dev),
-                torch.bfloat16: phase_bert_o2(tpt, fa, dev)}
+                torch.bfloat16: phase_bert_o2(tpt, fa, dev),
+                torch.float16: fp16_launches}
     phase_resnet_tiny(tpt, dev)
     phase_resnet(tpt, dev)
     phase_detection_ops(dev)
@@ -3502,15 +3838,22 @@ def main():
     paths = phase_predictor(tpt, fa, dev, workdir)
     served, cold = phase_serve(tpt, fa, dev, paths, workdir)
     phase_serve_restart(tpt, dev, paths, workdir, served, cold)
-    # fp32 rows: launches on the O1 path (phase bert); bf16 rows: on the
-    # O2 path (phase bert_o2); _gpt rows: at GPT-3 1.3B's shape, launches
-    # on its O2 path (phase gpt_o2)
+    eager_launches = phase_eager_bert(tpt, fa, dev)
+    phase_tensor_api(dev)
+    # fp32 rows: launches on the O1 path (phase bert), beside those of the
+    # eager path (phase eager_bert); bf16 rows: on the O2 path (phase
+    # bert_o2); fp16 rows: in the fp16 eager loop of phase tiny_o2 (no
+    # fp16 main path); _gpt rows: at GPT-3 1.3B's shape, launches on its
+    # O2 path (phase gpt_o2)
+    suffix = {torch.float32: "", torch.bfloat16: "_bf16",
+              torch.float16: "_fp16"}
     record = {"kernels": [
-        dict(name=name + ("" if dt == torch.float32 else "_bf16"),
-             route="cuda", source=SOURCE, replaces=REPLACES[name],
-             launches=launches[dt][name], max_abs_err=errs[name, dt],
-             **rows[dt][name])
-        for dt in (torch.float32, torch.bfloat16) for name in REPLACES] + [
+        dict(name=name + suffix[dt], route="cuda", source=SOURCE,
+             replaces=REPLACES[name], launches=launches[dt][name],
+             max_abs_err=errs[name, dt], **rows[dt][name],
+             **({"launches_eager_bert": eager_launches[name]}
+                if dt == torch.float32 else {}))
+        for dt in suffix for name in REPLACES] + [
         dict(name=name + "_gpt", route="cuda", source=SOURCE,
              replaces=REPLACES[name], launches=gpt_launches[name],
              max_abs_err=gpt_errs[name], **gpt_rows[name])

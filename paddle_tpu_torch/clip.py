@@ -1,7 +1,15 @@
 """fluid.clip parity (ref: python/paddle/fluid/clip.py —
 GradientClipByValue :159, GradientClipByNorm :301,
 GradientClipByGlobalNorm :456; ErrorClipByValue :42): the 1.x spellings
-of the optimizer's clip objects. Port of ``paddle_tpu/clip.py``."""
+of the optimizer's clip objects. Port of ``paddle_tpu/clip.py``.
+
+The package's top-level name ``clip`` is this module and, called, the
+2.0 function ``paddle.clip`` (``tensor_api.clip``): the two share the
+name, so ``from paddle_tpu_torch import clip`` gives the module and
+``paddle_tpu_torch.clip(x, min, max)`` clips a tensor."""
+import sys
+import types
+
 from .optimizer import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                         ClipGradByValue)
 
@@ -28,3 +36,12 @@ class ErrorClipByValue:
 __all__ = ["GradientClipByValue", "GradientClipByNorm",
            "GradientClipByGlobalNorm", "ErrorClipByValue",
            "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
+
+
+class _ClipModule(types.ModuleType):
+    def __call__(self, x, min=None, max=None, name=None):
+        from .tensor_api import clip
+        return clip(x, min, max, name)
+
+
+sys.modules[__name__].__class__ = _ClipModule

@@ -77,3 +77,37 @@ def dtype_name(dtype) -> str:
 
 def is_floating(dtype) -> bool:
     return convert_dtype(dtype).is_floating_point
+
+
+try:
+    import ml_dtypes
+    NP_BFLOAT16 = np.dtype(ml_dtypes.bfloat16)
+except ImportError:        # then bfloat16 comes to the host as float32
+    NP_BFLOAT16 = None
+
+
+def host_array(t) -> np.ndarray:
+    """A host numpy array of a tensor on any device. bfloat16, which
+    numpy lacks, comes as its 16-bit words viewed as
+    ``ml_dtypes.bfloat16`` (the reference's dtype, the same bytes), or
+    as float32 (exact) where ml_dtypes does not import."""
+    t = t.detach()
+    if t.dtype == bfloat16:
+        if NP_BFLOAT16 is None:
+            return t.float().cpu().numpy()
+        return host_bfloat16(t.view(int16).cpu().numpy())
+    return t.cpu().numpy()
+
+
+def host_bfloat16(words: np.ndarray) -> np.ndarray:
+    """bfloat16 values from their int16 words on the host."""
+    return words.view(NP_BFLOAT16)
+
+
+def from_host(value):
+    """A CPU tensor holding a copy of host data (a numpy array of any
+    dtype, ml_dtypes' bfloat16 included, or a nested list)."""
+    arr = np.array(value)
+    if NP_BFLOAT16 is not None and arr.dtype == NP_BFLOAT16:
+        return torch.from_numpy(arr.view(np.int16)).view(bfloat16)
+    return torch.from_numpy(arr)

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from . import flags, rng
+from .dtype import from_host, host_array
 from .enforce import (EnforceNotMet, NotFoundError, PreconditionNotMetError,
                       UnimplementedError, enforce, op_scope)
 from .program import GRAD_SUFFIX, Block, OpDesc, Program, default_main_program
@@ -259,17 +260,15 @@ def _feed_tensor(name, value, dev) -> torch.Tensor:
         value = value.value
     if isinstance(value, torch.Tensor):
         return value.to(dev)
-    return torch.from_numpy(np.array(value)).to(dev)
+    return from_host(value).to(dev)
 
 
 def _to_numpy(v: torch.Tensor) -> np.ndarray:
     """A host copy in the fluid Executor's convention: a 0-d fetch comes
     back as shape [1] (the reference's reductions emit [1] tensors);
-    bfloat16, which numpy lacks, as float32."""
-    v = v.detach()
-    if v.dtype == torch.bfloat16:
-        v = v.float()
-    arr = v.cpu().numpy()
+    bfloat16, which numpy lacks, as ml_dtypes' bfloat16 (float32 where
+    that does not import, ``dtype.host_array``)."""
+    arr = host_array(v)
     return arr.reshape(1) if arr.ndim == 0 else arr
 
 
@@ -411,7 +410,7 @@ class Executor:
             value = var.get()
             t = value.value if isinstance(value, TpuTensor) else value
             if not isinstance(t, torch.Tensor):
-                t = torch.from_numpy(np.array(t))
+                t = from_host(t)
             if t.device != dev:
                 t = t.to(dev)
                 var.set(TpuTensor(t, value.lod if isinstance(

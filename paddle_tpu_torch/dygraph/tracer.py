@@ -4,7 +4,9 @@ Port of ``paddle_tpu/dygraph/tracer.py``. ``trace_op`` looks the op up in
 the registry, applies the O1/O2 input cast with the reference's white and
 black lists (``:94-143``; not ``torch.autocast``'s own lists) and runs
 it. Torch autograd records the graph, so the JAX package's tape nodes
-and ``trace_with_fn`` have no counterpart.
+and ``trace_with_fn`` have no counterpart; an input slot the op declares
+non-differentiable enters detached, as the reference records no
+gradient for it.
 """
 from __future__ import annotations
 
@@ -100,6 +102,10 @@ def trace_op(op_type: str, inputs: Dict[str, Sequence],
         raw_inputs = {slot: [v if isinstance(v, torch.Tensor)
                              else to_variable(np.asarray(v)) for v in vals]
                       for slot, vals in inputs.items() if vals}
+        for slot in opdef.non_differentiable_inputs:
+            # no gradient flows into these slots (ref ``:174``)
+            if any(v.requires_grad for v in raw_inputs.get(slot, ())):
+                raw_inputs[slot] = [v.detach() for v in raw_inputs[slot]]
         if amp_level() in ("O1", "O2"):
             raw_inputs = _amp_cast_inputs(op_type, raw_inputs)
         outs = opdef.compute(raw_inputs, attrs)

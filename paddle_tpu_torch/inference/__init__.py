@@ -24,6 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.dtype import from_host, host_array
 from ..core.enforce import InvalidArgumentError, enforce
 from ..core.executor import Executor, run_op_desc
 from ..core.program import Program
@@ -126,15 +127,6 @@ class Config:
         pass
 
 
-def host_copy(value: torch.Tensor) -> np.ndarray:
-    """A host numpy copy of a fetch; bfloat16, which numpy lacks, comes
-    back float32 (exact)."""
-    v = value.detach()
-    if v.dtype == torch.bfloat16:
-        v = v.float()
-    return v.cpu().numpy()
-
-
 class PredictorTensor:
     """Zero-copy input/output handle (ref: ZeroCopyTensor,
     inference/api/details/zero_copy_tensor.cc). Holds a device tensor;
@@ -150,13 +142,13 @@ class PredictorTensor:
         pass  # shape comes from the staged array
 
     def copy_from_cpu(self, arr: np.ndarray):
-        self._value = torch.from_numpy(np.array(arr)).to(self._device)
+        self._value = from_host(arr).to(self._device)
 
     def copy_to_cpu(self) -> np.ndarray:
         enforce(self._value is not None,
                 f"output {self.name!r} not produced yet (call run())",
                 InvalidArgumentError)
-        return host_copy(self._value)
+        return host_array(self._value)
 
     def shape(self):
         return list(self._value.shape) if self._value is not None else []

@@ -1,8 +1,8 @@
 """Loss ops.
 
 Port of the op types of ``paddle_tpu/ops/loss_ops.py`` that the static
-graph's book programs run: ``cos_sim``. The rest of the module waits for
-the op-set item of ROADMAP Queue 1.
+graph's book programs run (``cos_sim``) and the 2.0 tensor API reaches
+(``dist``). The rest of the module waits for ROADMAP Queue 1 item 4b.
 """
 from __future__ import annotations
 
@@ -20,3 +20,22 @@ def cos_sim(inputs, attrs):
     yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
     dot = torch.sum(x * y, dim=-1, keepdim=True)
     return {"Out": [dot / (xn * yn)], "XNorm": [xn], "YNorm": [yn]}
+
+
+@register_op("dist")
+def dist(inputs, attrs):
+    """ref: dist_op.cc: the p-norm of the broadcast difference, 0-d
+    (p = inf / -inf: the largest / smallest |x - y|; p = 0: the count of
+    nonzero differences)."""
+    x, y = inputs["X"][0], inputs["Y"][0]
+    p = float(attrs.get("p", 2.0))
+    d = torch.abs(x - y)
+    if p == float("inf"):
+        out = d.amax()
+    elif p == float("-inf"):
+        out = d.amin()
+    elif p == 0:
+        out = (d != 0).to(x.dtype).sum()
+    else:
+        out = torch.pow(torch.pow(d, p).sum(), 1.0 / p)
+    return {"Out": [out.reshape(())]}

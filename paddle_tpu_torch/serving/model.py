@@ -82,9 +82,12 @@ class Readback:
     device-to-host copies are enqueued on the dispatching thread's
     stream, right behind the batch, into pinned buffers, and an event
     marks their end, so :meth:`wait` (the readback thread) blocks on
-    that event alone and never serializes behind a later batch."""
+    that event alone and never serializes behind a later batch. A
+    bfloat16 fetch is copied as its int16 words and viewed as
+    ``ml_dtypes.bfloat16`` on the host (float32 where ml_dtypes does
+    not import, ``core.dtype.host_array``)."""
 
-    __slots__ = ("_host", "_event")
+    __slots__ = ("_host", "_event", "_words")
 
     def __init__(self, outs: Sequence[torch.Tensor]):
         self._event = None
@@ -93,10 +96,14 @@ class Readback:
             self._host = outs
             return
         stream = torch.cuda.current_stream(outs[0].device)
+        self._words = [o.dtype == torch.bfloat16 and
+                       dtypes.NP_BFLOAT16 is not None for o in outs]
         host = []
-        for o in outs:
-            if o.dtype == torch.bfloat16:
-                o = o.float()           # numpy has no bfloat16
+        for o, words in zip(outs, self._words):
+            if words:
+                o = o.view(torch.int16)
+            elif o.dtype == torch.bfloat16:
+                o = o.float()
             h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
             h.copy_(o, non_blocking=True)
             host.append(h)
@@ -105,11 +112,11 @@ class Readback:
         self._event.record(stream)
 
     def wait(self) -> List[np.ndarray]:
-        if self._event is not None:
-            self._event.synchronize()
-            return [h.numpy() for h in self._host]
-        from ..inference import host_copy
-        return [host_copy(h) for h in self._host]
+        if self._event is None:
+            return [dtypes.host_array(h) for h in self._host]
+        self._event.synchronize()
+        return [dtypes.host_bfloat16(h.numpy()) if words else h.numpy()
+                for h, words in zip(self._host, self._words)]
 
 
 class ServedModel:

@@ -109,7 +109,7 @@ def test_decorate_casts_in_place_and_keeps_identity(master_weight):
     assert step._amp_dtype == torch.bfloat16
     assert bool(step._masters) == (master_weight is None)
     assert amp.decorate(model, level="O1") is model
-    assert next(model.parameters()).dtype == torch.bfloat16
+    assert model.parameters()[0].dtype == torch.bfloat16
 
 
 def _pair():

@@ -37,5 +37,8 @@ def test_scan_sees_the_package():
     assert len(FILES) > 15
     assert (ROOT / "chip_smoke.py").exists()
     for module in ("ops/detection_ops.py", "vision/detection_models.py",
-                   "ops/moe_ops.py", "distributed/moe.py"):
+                   "ops/moe_ops.py", "distributed/moe.py", "tensor_api.py",
+                   "ops/linalg_ops.py", "ops/parity_ops.py",
+                   "ops/long_tail_ops.py", "dygraph/engine.py",
+                   "dygraph/compat1x.py", "testing/op_cases.py"):
         assert ROOT / "paddle_tpu_torch" / module in FILES

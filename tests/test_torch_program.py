@@ -267,15 +267,17 @@ def test_builder_of_an_op_the_port_lacks_builds_and_raises_at_run():
     as the JAX package does for an unregistered op."""
     from paddle_tpu_torch.core.registry import OpInfoMap
     api = chip_smoke.port_static_api()
-    assert not OpInfoMap.instance().has("top_k_v2")
+    assert not OpInfoMap.instance().has("hinge_loss")
     prog, startup = tpt.Program(), tpt.Program()
     with api.static.program_guard(prog, startup):
         x = api.static.data("x", [2, 5], "float32")
-        top, idx = api.static.nn.topk(x, k=2)
-    assert prog.global_block().var(top.name).shape is None
-    with pytest.raises(tpt.core.enforce.NotFoundError, match="top_k_v2"):
-        tpt.Executor().run(prog, feed={"x": np.ones((2, 5), np.float32)},
-                           fetch_list=[top], scope=tpt.Scope())
+        y = api.static.data("y", [2, 5], "float32")
+        loss = api.static.nn.hinge_loss(x, y)
+    assert prog.global_block().var(loss.name).shape is None
+    with pytest.raises(tpt.core.enforce.NotFoundError, match="hinge_loss"):
+        tpt.Executor().run(prog, feed={"x": np.ones((2, 5), np.float32),
+                                       "y": np.ones((2, 5), np.float32)},
+                           fetch_list=[loss], scope=tpt.Scope())
 
 
 def test_flash_shape_rule_launches_nothing():

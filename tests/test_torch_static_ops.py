@@ -164,7 +164,7 @@ def test_port_registers_the_sixteen_ops():
     import paddle_tpu_torch.vision  # noqa: F401
     ops = OpInfoMap.instance()
     assert all(ops.has(t) for t in NEW_OPS)
-    assert len(ops._ops) == 75
+    assert len(ops._ops) == 228
     for t in NEW_OPS:
         jdef, pdef = JaxOpInfoMap.instance().get(t), ops.get(t)
         assert pdef.intermediate_outputs == jdef.intermediate_outputs, t

@@ -162,6 +162,22 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      the CPU tests' shapes (paddle_tpu_torch/testing/op_cases.py) on the
      card against the port on the CPU, forward and gradient, with the
      host syncs of the ops whose output length depends on the data.
+  27. nn_api: the 63 op types the rest of paddle.nn brought (nn_ops,
+     loss_ops, vision_ops, four of long_tail_ops), every case of
+     paddle_tpu_torch/testing/nn_cases.py on the card against the port on
+     the CPU, forward and gradient, index outputs equal (also on tied
+     maxima), and the host syncs of one call of each type;
+  28. nn_layers: one forward and backward of each nn class and
+     nn.functional function of that slice (nn_cases' LAYER_CASES and
+     FUNC_CASES) on the card against the CPU from the same weights;
+  29. cyclegan, the main path of that slice: CycleGAN at the paper's
+     widths (two 9-block ResNet generators, two 70x70 PatchGANs, 256 px,
+     batch 1, fp32, TF32 off, cudnn.benchmark on, two Adams) trained by
+     the eager user script cyclegan_step: the first step's losses and
+     update on the card against the CPU, the same step twice on the
+     card (equal bits or not), 2 warm-up and 5 timed steps: step_ms,
+     images/s, peak memory, conv TFLOP/s, and the launches, host syncs,
+     device busy and idle and conv device time of a profiled step.
 Phase 3 also times K1-K3 in fp16 at BERT-base.
 The last two lines are the kernels' JSON record (each kernel at fp32,
 its launches from phase 7 and, as launches_eager_bert, from phase 25;
@@ -1177,14 +1193,19 @@ def phase_resnet_tiny(tpt, dev):
 
 def conv_macs(model, x):
     """Multiply-adds of each convolution of one eval forward of x, in call
-    order; leaves the model in eval()."""
-    from paddle_tpu_torch.nn import Conv2D
+    order: out x (in / groups x k x k) for a conv, in x (out / groups x k
+    x k) for a transposed one; leaves the model in eval()."""
+    from paddle_tpu_torch.nn import Conv2D, Conv2DTranspose
     macs, hooks = [], []
     for m in model.modules():
         if isinstance(m, Conv2D):
             hooks.append(m.register_forward_hook(
                 lambda mod, inp, out: macs.append(
                     out.numel() * mod.weight[0].numel())))
+        elif isinstance(m, Conv2DTranspose):
+            hooks.append(m.register_forward_hook(
+                lambda mod, inp, out: macs.append(
+                    inp[0].numel() * mod.weight[0].numel())))
     model.eval()
     try:
         with torch.no_grad():
@@ -1411,7 +1432,12 @@ def profile_call(fn):
     by_op["(not linked to an op)"] = sum(
         e.time_range.end - e.time_range.start for e in dev_events) - sum(
         by_op.values())
+    by_kernel = collections.Counter()
+    for e in dev_events:
+        by_kernel[e.name] += e.time_range.end - e.time_range.start
     return dict(busy_ms=device_busy_us(dev_events) / 1e3, wall_ms=wall_ms,
+                top_kernels=[(k, v / 1e3) for k, v in
+                             by_kernel.most_common(5)],
                 by_op_ms={k: v / 1e3 for k, v in by_op.items()},
                 device_events=len(dev_events), runtime=runtime,
                 launches=sum(n for name, n in runtime.items()
@@ -3734,17 +3760,15 @@ def _op_case_run(case, device):
     return cpu
 
 
-def phase_tensor_api(dev):
-    """Every op type the 2.0 tensor API brought (153) on the card against
-    the port on the CPU, at the CPU tests' shapes (op_cases), TF32 off:
-    integer and bool outputs equal, float ones and the gradients at each
-    case's bound; random ops draw on the CPU and move, so their draws
-    are equal too, and each is held by its range and moments; empty by
-    shape and dtype. Host syncs of the ops whose output length depends
-    on the data are counted."""
-    from paddle_tpu_torch.testing.op_cases import CASES
-    types_seen, worst = set(), {}
-    for case in CASES:
+def hold_cases(cases, dev, worst):
+    """Each op case (op_cases' or nn_cases') on the card against the port
+    on the CPU: integer and bool outputs equal, float ones and the
+    gradients at the case's bound ("draws" cases too: the port draws on
+    the CPU and moves), random ones by their draws and range, empty by
+    shape and dtype; the largest float errors go into ``worst``. Returns
+    the op types seen."""
+    types_seen = set()
+    for case in cases:
         card, cpu = _op_case_run(case, dev), _op_case_run(case, "cpu")
         check(set(card) == set(cpu), f"{case.id}: slots differ")
         for slot, wants in cpu.items():
@@ -3772,16 +3796,24 @@ def phase_tensor_api(dev):
                 else:
                     check(torch.equal(got, want), f"{what} differs")
         types_seen.add(case.op)
-    from paddle_tpu_torch.core.registry import OpInfoMap
-    syncs = {}
-    for case in CASES:
-        if case.op in ("where_index", "masked_select", "unique",
-                       "unique_with_counts") and case.op not in syncs:
-            ins = {s: [torch.from_numpy(np.array(v)).to(dev) for v in vs]
-                   for s, vs in case.inputs.items()}
-            compute = OpInfoMap.instance().get(case.op).compute
-            syncs[case.op] = profile_call(
-                lambda: compute(ins, dict(case.attrs)))["syncs"]
+    return types_seen
+
+
+def phase_tensor_api(dev):
+    """Every op type the 2.0 tensor API brought (153) on the card against
+    the port on the CPU, at the CPU tests' shapes (op_cases), TF32 off:
+    integer and bool outputs equal, float ones and the gradients at each
+    case's bound; random ops draw on the CPU and move, so their draws
+    are equal too, and each is held by its range and moments; empty by
+    shape and dtype. Host syncs of the ops whose output length depends
+    on the data are counted."""
+    from paddle_tpu_torch.testing.op_cases import CASES
+    worst = {}
+    types_seen = hold_cases(CASES, dev, worst)
+    sized_by_data = ("where_index", "masked_select", "unique",
+                     "unique_with_counts")
+    syncs = op_syncs([next(c for c in CASES if c.op == t)
+                      for t in sized_by_data], dev)
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
     print(f"[tensor_api] {len(CASES)} cases of {len(types_seen)} op types "
           f"on the card against the CPU: all agree; largest float errors "
@@ -3789,6 +3821,453 @@ def phase_tensor_api(dev):
           + f"; host syncs of one call on inputs already on the card "
           f"{syncs}")
     check(len(types_seen) == 153, f"{len(types_seen)} op types checked")
+
+
+def op_syncs(cases, dev):
+    """Host syncs (cudaStreamSynchronize) of one call of each case's op
+    on inputs already on the card, after a first call (which fills the
+    per-device caches), by op type, from one profiled run of them all."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.device import op_device
+    ops = OpInfoMap.instance()
+    calls = [(case.op, {s: [torch.from_numpy(np.array(v)).to(dev)
+                            for v in vs] for s, vs in case.inputs.items()},
+              case.attrs) for case in cases]
+    with op_device(dev):
+        for op, ins, attrs in calls:
+            ops.get(op).compute(ins, dict(attrs))
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with op_ranges(), torch.profiler.profile(activities=acts) as prof:
+            for op, ins, attrs in calls:
+                ops.get(op).compute(ins, dict(attrs))
+            torch.cuda.synchronize()
+    syncs = collections.Counter(
+        kernel_op(e) for e in prof.events()
+        if e.name == "cudaStreamSynchronize" and kernel_op(e))
+    return {t: syncs.get(t, 0) for t in sorted({c.op for c in cases})}
+
+
+def phase_nn_api(dev):
+    """The 63 op types the rest of paddle.nn brought (nn_ops, loss_ops,
+    vision_ops, four of long_tail_ops), every case of nn_cases on the
+    card against the port on the CPU, forward and gradient, index
+    outputs (max_pool*_with_index's Mask, on tied maxima too) equal;
+    then the host syncs of one call of each type."""
+    from paddle_tpu_torch.testing.nn_cases import NN_CASES
+    worst = {}
+    types_seen = hold_cases(NN_CASES, dev, worst)
+    syncs = op_syncs(NN_CASES, dev)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[nn_api] {len(NN_CASES)} cases of {len(types_seen)} op types "
+          f"on the card against the CPU: all agree; largest float errors "
+          + ", ".join(f"{k} {v:.2e}" for k, v in top)
+          + "; host syncs of one call on inputs already on the card: "
+          + (", ".join(f"{t} {n}" for t, n in syncs.items() if n)
+             or "none") + f" (0 for the other {sum(1 for n in syncs.values() if not n)} types)")
+    check(len(types_seen) == 63, f"{len(types_seen)} op types checked")
+
+
+def _layer_run(model, inputs, call, device):
+    """``model(*inputs)`` (or ``call(F, *inputs)``) on ``device``: the
+    outputs and the gradients of sum(out * G), G seeded, of every
+    parameter and float input, all on the CPU."""
+    from paddle_tpu_torch.nn import functional as F
+    ts = [torch.from_numpy(x.copy()).to(device).requires_grad_(
+        np.issubdtype(x.dtype, np.floating)) for x in inputs]
+    outs = model(*ts) if model is not None else call(F, *ts)
+    outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    while any(isinstance(o, (list, tuple)) for o in outs):
+        outs = [v for o in outs for v in
+                (o if isinstance(o, (list, tuple)) else [o])]
+    total = None
+    for k, o in enumerate(outs):
+        if o.is_floating_point() and o.requires_grad:
+            g = torch.from_numpy(np.asarray(np.random.RandomState(
+                99 + k).randn(*o.shape), np.float32)).to(device)
+            term = (o * g).sum()
+            total = term if total is None else total + term
+    grads = {}
+    if total is not None:
+        total.backward()
+        named = list(model.named_parameters()) if model is not None else []
+        grads = {n: p.grad for n, p in named if p.grad is not None}
+        grads.update({f"input {k}": t.grad for k, t in enumerate(ts)
+                      if t.grad is not None})
+    return ([o.detach().cpu() for o in outs],
+            {k: v.cpu() for k, v in grads.items()})
+
+
+def phase_nn_layers(tpt, dev):
+    """One forward and backward of each nn class and nn.functional
+    function of the slice (nn_cases' LAYER_CASES and FUNC_CASES, the CPU
+    tests' sizes) on the card against the CPU from the same weights:
+    outputs at rtol 1e-4 / atol 2e-5 and gradients at 1e-4 of their
+    largest element (the CPU test's bounds against the JAX package)."""
+    import types
+    from paddle_tpu_torch import dygraph, nn
+    from paddle_tpu_torch.convert import load_state_dict
+    from paddle_tpu_torch.testing.nn_cases import FUNC_CASES, LAYER_CASES
+    api = types.SimpleNamespace(nn=nn, dygraph=dygraph)
+    worst = {}
+
+    def hold(name, card, cpu):
+        (co, cg), (wo, wg) = card, cpu
+        check(len(co) == len(wo) and set(cg) == set(wg),
+              f"{name}: outputs or gradients differ in number")
+        for k, (got, want) in enumerate(zip(co, wo)):
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{name} out {k}: {got.shape} {got.dtype} against "
+                  f"{want.shape} {want.dtype}")
+            if want.is_floating_point():
+                check(torch.allclose(got, want, rtol=1e-4, atol=2e-5),
+                      f"{name} out {k}: max abs "
+                      f"{(got - want).abs().max().item():.3e}")
+            else:
+                check(torch.equal(got, want), f"{name} out {k} differs")
+        for g, want in wg.items():
+            err = ((cg[g] - want).abs().max() /
+                   want.abs().max().clamp_min(1e-12)).item()
+            worst[f"{name} d{g}"] = err
+            check(err <= 1e-4, f"{name} d{g}: {err:.3e} of the largest")
+
+    for name, make, inputs in LAYER_CASES:
+        tpt.set_device("cpu")
+        tpt.seed(0)
+        cpu_model = make(api)
+        want = _layer_run(cpu_model, inputs, None, "cpu")
+        tpt.set_device(dev)
+        card_model = load_state_dict(make(api), {
+            k: v.detach().numpy() for k, v in cpu_model.state_dict().items()})
+        hold(name, _layer_run(card_model, inputs, None, dev), want)
+    for name, inputs, call in FUNC_CASES:
+        tpt.set_device("cpu")
+        want = _layer_run(None, inputs, call, "cpu")
+        tpt.set_device(dev)
+        hold(name, _layer_run(None, inputs, call, dev), want)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[nn_layers] {len(LAYER_CASES)} layer cases and "
+          f"{len(FUNC_CASES)} function cases, forward and backward on the "
+          f"card against the CPU: all agree; largest gradient errors (of "
+          f"the largest element) " + ", ".join(f"{k} {v:.2e}"
+                                              for k, v in top))
+
+
+# ------------------------------------------------------------ CycleGAN
+# the CycleGAN paper's (Zhu et al., ICCV 2017, appendix 7.2) widths and
+# schedule, as PaddleCV/gan's CycleGAN trains it: 256 px, batch 1, Adam
+# 2e-4 (0.5, 0.999), lambda 10, identity 0.5 lambda
+CYCLEGAN = dict(ngf=64, ndf=64, blocks=9, px=256, batch=1, lr=2e-4,
+                beta1=0.5, beta2=0.999, lam=10.0)
+
+
+def cyclegan_nets(nn, ngf=64, ndf=64, blocks=9):
+    """CycleGAN's two ResNet generators (c7s1-ngf, d2ngf, d4ngf, R4ngf x
+    blocks, u2ngf, ungf, c7s1-3 and Tanh; reflection padding, instance
+    norm) and two 70x70 PatchGAN discriminators (C ndf without norm, then
+    2, 4, 8 ndf with instance norm, LeakyReLU(0.2), a last 4x4 conv to one
+    channel), as a user writes them against ``nn`` (either package's).
+    Weights are N(0, 0.02). A conv followed by instance norm has no bias:
+    the norm subtracts each channel's mean, so such a bias has an exact
+    gradient of 0 and never trains. Each block is built anew, so every
+    parameter has a name of its own (the JAX package's eager optimizer
+    keys its state by name)."""
+    def attr():
+        return nn.ParamAttr(initializer=nn.initializer.Normal(0.0, 0.02))
+
+    def conv(cin, cout, k, stride=1, padding=0, bias=False):
+        return nn.Conv2D(cin, cout, k, stride=stride, padding=padding,
+                         weight_attr=attr(),
+                         bias_attr=None if bias else False)
+
+    def c_in_relu(cin, cout, k, **kw):
+        return [conv(cin, cout, k, **kw), nn.InstanceNorm2D(cout), nn.ReLU()]
+
+    class ResBlock(nn.Layer):
+        def __init__(self, dim):
+            super().__init__()
+            self.body = nn.Sequential(
+                nn.ReflectionPad2d(1), *c_in_relu(dim, dim, 3),
+                nn.ReflectionPad2d(1), conv(dim, dim, 3),
+                nn.InstanceNorm2D(dim))
+
+        def forward(self, x):
+            return x + self.body(x)
+
+    def generator():
+        layers = [nn.ReflectionPad2d(3), *c_in_relu(3, ngf, 7),
+                  *c_in_relu(ngf, 2 * ngf, 3, stride=2, padding=1),
+                  *c_in_relu(2 * ngf, 4 * ngf, 3, stride=2, padding=1)]
+        layers += [ResBlock(4 * ngf) for _ in range(blocks)]
+        for cin, cout in ((4 * ngf, 2 * ngf), (2 * ngf, ngf)):
+            layers += [nn.Conv2DTranspose(cin, cout, 3, stride=2, padding=1,
+                                          output_padding=1,
+                                          weight_attr=attr(),
+                                          bias_attr=False),
+                       nn.InstanceNorm2D(cout), nn.ReLU()]
+        layers += [nn.ReflectionPad2d(3), conv(ngf, 3, 7, bias=True),
+                   nn.Tanh()]
+        return nn.Sequential(*layers)
+
+    def discriminator():
+        layers = [conv(3, ndf, 4, stride=2, padding=1, bias=True),
+                  nn.LeakyReLU(0.2)]
+        ch = ndf
+        for stride in (2, 2, 1):
+            layers += [conv(ch, 2 * ch, 4, stride=stride, padding=1),
+                       nn.InstanceNorm2D(2 * ch), nn.LeakyReLU(0.2)]
+            ch *= 2
+        layers.append(conv(ch, 1, 4, padding=1, bias=True))
+        return nn.Sequential(*layers)
+
+    return generator(), generator(), discriminator(), discriminator()
+
+
+def cyclegan_opts(api, nets, lr=2e-4, beta1=0.5, beta2=0.999):
+    """Adam over both generators and Adam over both discriminators."""
+    g_a, g_b, d_a, d_b = nets
+    return (api.Adam(learning_rate=lr, beta1=beta1, beta2=beta2,
+                     parameters=g_a.parameters() + g_b.parameters()),
+            api.Adam(learning_rate=lr, beta1=beta1, beta2=beta2,
+                     parameters=d_a.parameters() + d_b.parameters()))
+
+
+def cyclegan_images(rs, batch, px):
+    """A batch of each domain: seeded normal noise clipped to [-1, 1]."""
+    return [np.clip(rs.randn(batch, 3, px, px), -1.0, 1.0).astype(np.float32)
+            for _ in range(2)]
+
+
+def cyclegan_step(api, nets, opts, real_a, real_b, lam=10.0):
+    """One CycleGAN training step as a user writes it eagerly: G_A maps A
+    to B and G_B back, D_A judges B and D_B judges A. The generators'
+    loss (LSGAN adversarial terms on their fakes, cycle L1 x lam,
+    identity L1 x lam / 2: six generator forwards), backward, the G
+    update; the gradients that loss left on the discriminators dropped;
+    then each discriminator on real images and on the detached fakes
+    (LSGAN, halved), backward, the D update. Returns the losses
+    (adversarial, cycle, identity, discriminators)."""
+    g_a, g_b, d_a, d_b = nets
+    opt_g, opt_d = opts
+    mse, l1 = api.nn.MSELoss(), api.nn.L1Loss()
+    fake_b, fake_a = g_a(real_a), g_b(real_b)
+    rec_a, rec_b = g_b(fake_b), g_a(fake_a)
+    idt_b, idt_a = g_a(real_b), g_b(real_a)
+    pred_b, pred_a = d_a(fake_b), d_b(fake_a)
+    adv = mse(pred_b, api.ones_like(pred_b)) + \
+        mse(pred_a, api.ones_like(pred_a))
+    cyc = (l1(rec_a, real_a) + l1(rec_b, real_b)) * lam
+    idt = (l1(idt_b, real_b) + l1(idt_a, real_a)) * (0.5 * lam)
+    (adv + cyc + idt).backward()
+    opt_g.step()
+    opt_g.clear_grad()
+    opt_d.clear_grad()
+    halves = []
+    for d, real, fake in ((d_a, real_b, fake_b.detach()),
+                          (d_b, real_a, fake_a.detach())):
+        p_real, p_fake = d(real), d(fake)
+        halves.append((mse(p_real, api.ones_like(p_real)) +
+                       mse(p_fake, api.zeros_like(p_fake))) * 0.5)
+    d_loss = halves[0] + halves[1]
+    d_loss.backward()
+    opt_d.step()
+    opt_d.clear_grad()
+    return adv, cyc, idt, d_loss
+
+
+def port_cyclegan_api():
+    """The port's surface as cyclegan_step takes it (the CPU test hands it
+    the JAX package's)."""
+    import types
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.optimizer import Adam
+    return types.SimpleNamespace(nn=nn, Adam=Adam, to_tensor=pt.to_tensor,
+                                 ones_like=pt.ones_like,
+                                 zeros_like=pt.zeros_like)
+
+
+def cyclegan_state(nets):
+    return [{k: v.detach().cpu().numpy().copy()
+             for k, v in net.state_dict().items()} for net in nets]
+
+
+def conv_device_us(fn):
+    """Device time (us) of the kernels that convolution ops launch in one
+    call of fn: forward and backward (aten::*convolution*), whatever the
+    kernels are named (cuDNN's fp32 algorithms include FFT and Winograd
+    ones)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        parent = e
+        while parent is not None and "convolution" not in parent.name:
+            parent = parent.cpu_parent
+        if parent is not None:
+            total += sum(k.duration for k in e.kernels)
+    return total
+
+
+def phase_cyclegan(tpt, dev):
+    """The main path of this slice: CycleGAN (cyclegan_nets at the paper's
+    widths, 9 blocks, 256 px, batch 1, fp32 NCHW, TF32 off,
+    cudnn.benchmark on) trained by the eager user script cyclegan_step.
+    The four networks are built from seed 0 on the CPU and carried to
+    the card; the first step's
+    losses on the card against the port on the CPU from the same weights
+    and images (rtol 1e-3: some forty fp32 convolutions deep, cuDNN and
+    the CPU's kernels sum in other orders, about 1e-5 of a loss; a wrong
+    pad, norm or output_padding moves a loss by far more); the same step
+    run twice on the card from the same state, equal bits or not (the
+    update difference between the runs printed); each network's first
+    update on the card within 0.15 of the CPU's (see the check); then
+    2 warm-up and 5 timed steps (host clock, each ending in a
+    synchronize), losses finite and every parameter
+    moved; one profiled step: launches, host syncs, device busy and
+    idle, device time of the forward conv2d_transpose, instance_norm and
+    conv2d ops and of the step's convolution kernels."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.convert import load_state_dict
+    cfg = CYCLEGAN
+    api = port_cyclegan_api()
+    rs = np.random.RandomState(0)
+    batches = [cyclegan_images(rs, cfg["batch"], cfg["px"]) for _ in range(2)]
+
+    def build(device, state):
+        tpt.set_device(device)
+        nets = cyclegan_nets(nn, cfg["ngf"], cfg["ndf"], cfg["blocks"])
+        for net, st in zip(nets, state):
+            load_state_dict(net, st)
+        return nets, cyclegan_opts(api, nets, cfg["lr"], cfg["beta1"],
+                                   cfg["beta2"])
+
+    def step(nets, opts, images, device):
+        a, b = (torch.from_numpy(x).to(device) for x in images)
+        return [v.detach() for v in
+                cyclegan_step(api, nets, opts, a, b, cfg["lam"])]
+
+    tpt.set_device("cpu")
+    tpt.seed(0)
+    start = cyclegan_state(cyclegan_nets(nn, cfg["ngf"], cfg["ndf"],
+                                         cfg["blocks"]))
+    n_params = [sum(v.size for v in st.values()) for st in start]
+    t0 = time.perf_counter()
+    cpu_nets, cpu_opts = build("cpu", start)
+    want = [v.item() for v in step(cpu_nets, cpu_opts, batches[0], "cpu")]
+    cpu_s = time.perf_counter() - t0
+    cpu_after = cyclegan_state(cpu_nets)
+    del cpu_nets, cpu_opts
+    names = ("adversarial", "cycle", "identity", "discriminators")
+    # on from the first card step: torch keeps the first cuDNN plan it
+    # makes for a shape, so a step with benchmark off first would leave
+    # the heuristics' plans in place for the timed steps (an FFT
+    # algorithm whose complex gemv took 100 ms a step)
+    torch.backends.cudnn.benchmark = True
+    runs = []
+    for _ in range(2):
+        nets, opts = build(dev, start)
+        got = [v.item() for v in step(nets, opts, batches[0], dev)]
+        runs.append((got, cyclegan_state(nets)))
+    got, after = runs[0]
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    print(f"[cyclegan] parameters: G {n_params[0]:,} each, D {n_params[2]:,}"
+          f" each; first step's losses on the card against the CPU (CPU "
+          f"step {cpu_s:.1f} s): " + ", ".join(
+              f"{n} {g!r} / {w!r} (rel {r:.2e})"
+              for n, g, w, r in zip(names, got, want, rel)))
+    check(all(r <= 1e-3 for r in rel), "the card's first-step losses differ "
+          "from the CPU's past rtol 1e-3")
+
+    def update_diffs(other):
+        """Each network's ||update - other's update|| / ||update|| over
+        all its parameters, and the worst single tensor's."""
+        nets_err, worst = [], (0.0, "")
+        for i, (x, y, s0) in enumerate(zip(after, other, start)):
+            num = sum(float(np.sum((x[k] - y[k]) ** 2)) for k in x)
+            den = sum(float(np.sum((x[k] - s0[k]) ** 2)) for k in x)
+            nets_err.append((num / max(den, 1e-30)) ** 0.5)
+            for k in x:
+                e = update_error(torch.from_numpy(x[k]),
+                                 torch.from_numpy(y[k]),
+                                 torch.from_numpy(s0[k]))
+                worst = max(worst, (e, f"{'GGDD'[i]}{'ABAB'[i]} {k}"))
+        return nets_err, worst
+
+    same_losses = runs[0][0] == runs[1][0]
+    same_params = all(np.array_equal(x[k], y[k]) for x, y in
+                      zip(runs[0][1], runs[1][1]) for k in x)
+    twice, twice_worst = update_diffs(runs[1][1])
+    vs_cpu, cpu_worst = update_diffs(cpu_after)
+    print(f"[cyclegan] the first step twice on the card from the same state "
+          f"(the same cuDNN plans): losses "
+          f"{'equal' if same_losses else 'DIFFER'}, parameters "
+          f"{'bit-equal' if same_params else 'not bit-equal'}; update "
+          f"difference by network (G_A, G_B, D_A, D_B) between the runs "
+          + ", ".join(f"{e:.2e}" for e in twice)
+          + f" (worst tensor {twice_worst[1]} {twice_worst[0]:.2e}), card "
+          f"against the CPU " + ", ".join(f"{e:.2e}" for e in vs_cpu)
+          + f" (worst tensor {cpu_worst[1]} {cpu_worst[0]:.2e})")
+    # Adam's first update is lr * g / (|g| + eps), about lr * sign(g) an
+    # element: a gradient element within the rounding noise of 0 flips
+    # its update between two summation orders (each flip 2 lr), so the
+    # card is held to the CPU by each network's update difference, with
+    # room for about 0.6% of the elements flipping; a wrong pad, norm or
+    # optimizer term flips about half of them (a difference near 1.4)
+    check(max(vs_cpu) <= 0.15, "the card's first update differs from the "
+          "CPU's past 0.15 of a network's update")
+    nets, opts = build(dev, start)
+    it = iter(range(10 ** 6))
+
+    def one():
+        return step(nets, opts, batches[next(it) % 2], dev)
+
+    losses = []
+    times = _timed_steps(lambda: losses.append(one()), 2, 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(v.item()) for ls in losses for v in ls),
+          "a loss is not finite")
+    now = cyclegan_state(nets)
+    unmoved = [k for x, s in zip(now, start) for k in x
+               if np.array_equal(x[k], s[k])]
+    check(not unmoved, f"parameters not moved: {unmoved[:5]}")
+    prof = profile_call(one)
+    x = torch.from_numpy(batches[0][0]).to(dev)
+    flops = 2 * 3 * 6 * (sum(conv_macs(nets[0], x)) +
+                         sum(conv_macs(nets[2], x)))
+    for net in nets:
+        net.train()
+    med = sorted(times)[len(times) // 2]
+    conv_us = conv_device_us(one)
+    torch.backends.cudnn.benchmark = False
+    fwd = prof["by_op_ms"]
+    print(f"[cyclegan] step_ms median {med:.3f} range {min(times):.3f}-"
+          f"{max(times):.3f} over {len(times)} steps (2 warm-up), images/s "
+          f"{2 * cfg['batch'] / med * 1e3:.3f} (an A and a B image a step), "
+          f"peak memory {peak:.2f} GiB; conv FLOPs a step (6 G and 6 D "
+          f"forwards' worth, x3 for the two gradients) {flops / 1e12:.3f} "
+          f"TFLOP, {flops / med / 1e9:.2f} TFLOP/s; losses of the last step "
+          + ", ".join(f"{n} {v.item():.5f}" for n, v in zip(names, losses[-1]))
+          + f"; {card_line()}")
+    print(f"[cyclegan] one profiled step: {prof['wall_ms']:.3f} ms, device "
+          f"busy {prof['busy_ms']:.3f} ms (idle "
+          f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}), launches "
+          f"{prof['launches']}, host syncs {prof['syncs']}; forward device "
+          f"ms by op (backward kernels run on autograd's thread, unlinked): "
+          f"conv2d {fwd.get('conv2d', 0.0):.3f}, conv2d_transpose "
+          f"{fwd.get('conv2d_transpose', 0.0):.3f}, instance_norm "
+          f"{fwd.get('instance_norm', 0.0):.3f}, pad2d "
+          f"{fwd.get('pad2d', 0.0):.3f}; convolution kernels of the whole "
+          f"step (forward and both gradients) {conv_us / 1e3:.3f} ms; top "
+          f"kernels " + ", ".join(f"{k[:60]} {v:.3f}"
+                                  for k, v in prof["top_kernels"]))
+    return med
 
 
 def main():
@@ -3840,6 +4319,9 @@ def main():
     phase_serve_restart(tpt, dev, paths, workdir, served, cold)
     eager_launches = phase_eager_bert(tpt, fa, dev)
     phase_tensor_api(dev)
+    phase_nn_api(dev)
+    phase_nn_layers(tpt, dev)
+    phase_cyclegan(tpt, dev)
     # fp32 rows: launches on the O1 path (phase bert), beside those of the
     # eager path (phase eager_bert); bf16 rows: on the O2 path (phase
     # bert_o2); fp16 rows: in the fp16 eager loop of phase tiny_o2 (no

@@ -5,7 +5,12 @@ as ``{structured_name: np.ndarray}``. That dict holds the buffers too
 (the BN running statistics ``<layer>._mean`` / ``<layer>._variance``),
 and so does the port's ``state_dict``, so they load with the parameters.
 Layouts are the same in both packages (``Linear`` is ``[in, out]``,
-``Conv2D`` OIHW in either data format), so no array is transposed. A
+``Conv2D`` OIHW in either data format, the transposed convs [in, out /
+groups, k...]), so no array is transposed. ``SpectralNorm``'s power
+iteration vectors ``weight_u`` / ``weight_v`` are parameters with
+``stop_gradient`` in both packages' ``state_dict`` and load with the
+rest; ``data_norm``'s batch statistics exist only in static programs,
+whose persistables ``io`` carries by name. A
 parameter the port shares between names (the tied MLM decoder weight)
 must arrive with equal arrays under every name, and is loaded once.
 bf16 arrays (ml_dtypes' ``bfloat16``, which ``torch.from_numpy`` does

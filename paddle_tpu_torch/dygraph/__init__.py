@@ -11,7 +11,7 @@ from .tracer import (amp_level, amp_state, no_grad, set_amp_level,  # noqa: F401
                      trace_op)
 from .varbase import Parameter, to_variable  # noqa: F401
 from .compat1x import (  # noqa: F401
-    ParallelEnv, SaveLoadConfig, TranslatedLayer, disable_dygraph,
+    NCE, BilinearTensorProduct, ParallelEnv, SaveLoadConfig, TranslatedLayer, disable_dygraph,
     enable_dygraph, enabled, load, load_dygraph, no_grad_, prepare_context,
     save, save_dygraph, set_code_level, set_verbosity, start_gperf_profiler,
     stop_gperf_profiler)
@@ -29,13 +29,20 @@ def guard(place=None):
     yield
 
 
+# 1.x aliases of nn classes -> their 2.0 names
+_NN_1X = {"PRelu": "PReLU", "InstanceNorm": "InstanceNorm2D"}
+
+
 def __getattr__(name):
-    """The 1.x learning-rate names (resolved late: the optimizer imports
-    dygraph), and the names not ported yet, which raise with their
-    ROADMAP item."""
+    """The 1.x learning-rate names and nn aliases (resolved late: the
+    optimizer and nn import dygraph), and the names not ported yet,
+    which raise with their ROADMAP item."""
     if name in _LR_1X:
         from .. import optimizer
         return getattr(optimizer, name)
+    if name in _NN_1X:
+        from .. import nn
+        return getattr(nn, _NN_1X[name])
     from .compat1x import DEFERRED, deferred
     if name in DEFERRED:
         raise deferred(name)

@@ -1,9 +1,10 @@
 """fluid.dygraph 1.x export surface.
 
-Port of ``paddle_tpu/dygraph/compat1x.py:16-226``: mode control, the
-single-process parallel environment, state-dict and layer persistence,
-``TranslatedLayer`` over the inference-model IO, and the dy2static and
-profiler switches. The 1.x layers of ``:229-337`` and
+Port of ``paddle_tpu/dygraph/compat1x.py:16-248`` and ``:277-308``:
+mode control, the single-process parallel environment, state-dict and
+layer persistence, ``TranslatedLayer`` over the inference-model IO, the
+dy2static and profiler switches, and the 1.x layers
+``BilinearTensorProduct`` and ``NCE``. ``GRUUnit``, ``TreeConv`` and
 ``declarative`` need modules not ported yet: they raise with the
 ROADMAP item that brings them (:data:`DEFERRED`).
 """
@@ -18,16 +19,12 @@ import torch
 
 from ..core.enforce import InvalidArgumentError, UnimplementedError, enforce
 from .layers import Layer
-from .tracer import no_grad
+from .tracer import no_grad, trace_op
 
 # name -> ROADMAP Queue 1 item that ports what it needs
 DEFERRED = {
     "GRUUnit": "4e (the gru_unit op of ops/rnn_ops.py)",
-    "NCE": "4b (the nce op of ops/loss_ops.py)",
     "TreeConv": "4d (the tree_conv op of ops/special_ops.py)",
-    "BilinearTensorProduct": "4b (nn.Bilinear)",
-    "PRelu": "4b (nn.PReLU)",
-    "InstanceNorm": "4b (nn.InstanceNorm2D)",
     "TracedLayer": "5 (jit.TracedLayer, jit/dy2static.py)",
     "declarative": "5 (jit.to_static, jit/dy2static.py)",
     "dygraph_to_static_func": "5 (jit.to_static, jit/dy2static.py)",
@@ -219,3 +216,57 @@ def start_gperf_profiler():
 def stop_gperf_profiler():
     from ..observability import tracer
     tracer.disable()
+
+
+# -------------------------------------------------------- 1.x layers
+class BilinearTensorProduct(Layer):
+    """ref: dygraph/nn.py BilinearTensorProduct, the 1.x spelling of
+    ``nn.Bilinear`` (its parameters under ``_b``), with an activation
+    op by name."""
+
+    def __init__(self, input1_dim, input2_dim, output_dim, name=None,
+                 act=None, param_attr=None, bias_attr=None):
+        super().__init__()
+        from ..nn import Bilinear
+        self._b = Bilinear(input1_dim, input2_dim, output_dim,
+                           weight_attr=param_attr, bias_attr=bias_attr)
+        self._act = act
+
+    def forward(self, x, y):
+        out = self._b(x, y)
+        if self._act:
+            out = trace_op(self._act, {"X": [out]}, {},
+                           out_slots=["Out"])[0]
+        return out
+
+
+class NCE(Layer):
+    """ref: dygraph/nn.py NCE: the nce op over a [num_total_classes, dim]
+    weight and a bias; uniform negatives only."""
+
+    def __init__(self, num_total_classes, dim, sample_weight=None,
+                 param_attr=None, bias_attr=None, num_neg_samples=10,
+                 sampler="uniform", custom_dist=None, seed=0,
+                 is_sparse=False, dtype="float32"):
+        super().__init__()
+        from ..nn import _bias, _init_of
+        self.num_total_classes = num_total_classes
+        self.num_neg_samples = num_neg_samples
+        self.sampler = sampler
+        self.seed = seed
+        self.weight = self.create_parameter(
+            (num_total_classes, dim),
+            default_initializer=_init_of(param_attr, None))
+        self.bias = _bias(self, num_total_classes, bias_attr)
+
+    def forward(self, input, label, sample_weight=None):
+        ins = {"Input": [input], "Weight": [self.weight], "Label": [label]}
+        if self.bias is not None:
+            ins["Bias"] = [self.bias]
+        if sample_weight is not None:
+            ins["SampleWeight"] = [sample_weight]
+        return trace_op("nce", ins,
+                        {"num_total_classes": self.num_total_classes,
+                         "num_neg_samples": self.num_neg_samples,
+                         "sampler": self.sampler, "seed": self.seed},
+                        out_slots=["Cost"])[0]

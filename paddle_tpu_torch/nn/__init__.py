@@ -1,12 +1,12 @@
-"""paddle.nn parity: the layer classes the text and vision models use.
+"""paddle.nn parity: the layer classes over the dygraph Layer base.
 
-Port of ``Linear``, ``Conv2D``, the batch norms, the 2-D pools,
-``LayerNorm``, ``Embedding``, ``Dropout``, ``Flatten``, ``ReLU``,
-``ReLU6``, ``LeakyReLU`` and ``ParamAttr`` from
-``paddle_tpu/nn/__init__.py``, and every class of ``nn/transformer.py``.
-Weights
-keep the reference's layouts (``Linear`` is ``[in, out]``, ``Conv2D``
-OIHW in either data format), so weights carry across with no transposes.
+Port of ``paddle_tpu/nn/__init__.py``, with ``layers_ext.py``,
+``layers_20a.py`` and ``transformer.py`` beside it. Weights keep the
+reference's layouts (``Linear`` is ``[in, out]``, ``Conv2D`` OIHW in
+either data format, ``Conv2DTranspose`` [in, out / groups, kh, kw]), so
+weights carry across with no transposes. ``GRU``, ``LSTM`` and
+``SimpleRNN`` (``nn/rnn.py``) need the ``rnn_scan`` op, ROADMAP Queue 1
+item 4e: they raise.
 """
 from __future__ import annotations
 
@@ -14,8 +14,10 @@ import math
 
 import torch
 
+from ..core.enforce import UnimplementedError
 from ..device import get_device
-from ..dygraph.layers import Layer, LayerList, Sequential  # noqa: F401
+from ..dygraph.layers import (Layer, LayerList, ParameterList,  # noqa: F401
+                              Sequential)
 from ..dygraph.tracer import trace_op
 from ..dygraph.varbase import Parameter, to_variable  # noqa: F401
 from . import functional as F  # noqa: F401
@@ -86,6 +88,30 @@ class Conv2D(Layer):
         return F.conv2d(x, self.weight, self.bias, self._stride,
                         self._padding, self._dilation, self._groups,
                         data_format=self._data_format)
+
+
+class Conv2DTranspose(Layer):
+    """ref: python/paddle/nn/layer/conv.py Conv2DTranspose. The weight is
+    [in, out / groups, kh, kw]."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCHW"):
+        super().__init__()
+        k = kernel_size if isinstance(kernel_size, (list, tuple)) else \
+            (kernel_size, kernel_size)
+        self._attrs = (stride, padding, output_padding, dilation, groups)
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            (in_channels, out_channels // groups, k[0], k[1]),
+            default_initializer=_init_of(weight_attr, None))
+        self.bias = _bias(self, out_channels, bias_attr)
+
+    def forward(self, x):
+        stride, padding, output_padding, dilation, groups = self._attrs
+        return F.conv2d_transpose(x, self.weight, self.bias, stride, padding,
+                                  output_padding, dilation, groups,
+                                  data_format=self._data_format)
 
 
 class _BatchNormBase(Layer):
@@ -181,6 +207,54 @@ class LayerNorm(Layer):
                             self.bias, self._epsilon)
 
 
+class GroupNorm(Layer):
+    """ref: python/paddle/nn/layer/norm.py GroupNorm (the group_norm op);
+    ``weight_attr`` and ``bias_attr`` are taken and unused, as in the
+    reference."""
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None):
+        super().__init__()
+        self._groups, self._epsilon = num_groups, epsilon
+        self.weight = self.create_parameter(
+            (num_channels,), default_initializer=initializer.Constant(1.0))
+        self.bias = self.create_parameter((num_channels,), is_bias=True)
+
+    def forward(self, x):
+        return trace_op("group_norm",
+                        {"X": [x], "Scale": [self.weight],
+                         "Bias": [self.bias]},
+                        {"groups": self._groups, "epsilon": self._epsilon},
+                        out_slots=["Y"])[0]
+
+
+class InstanceNorm2D(Layer):
+    """ref: python/paddle/nn/layer/norm.py InstanceNorm2D (the
+    instance_norm op, which normalises every dim past [N, C], so the
+    1-D and 3-D classes are this one)."""
+
+    def __init__(self, num_features, epsilon=1e-5):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            (num_features,), default_initializer=initializer.Constant(1.0))
+        self.bias = self.create_parameter((num_features,), is_bias=True)
+
+    def forward(self, x):
+        return trace_op("instance_norm",
+                        {"X": [x], "Scale": [self.weight],
+                         "Bias": [self.bias]},
+                        {"epsilon": self._epsilon}, out_slots=["Y"])[0]
+
+
+class InstanceNorm1d(InstanceNorm2D):
+    """1-D instance norm over [N, C, L]."""
+
+
+class InstanceNorm3d(InstanceNorm2D):
+    """3-D instance norm over [N, C, D, H, W]."""
+
+
 class Embedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  weight_attr=None):
@@ -253,6 +327,21 @@ class AdaptiveMaxPool2D(Layer):
                                      data_format=self._data_format)
 
 
+class Pool2D(Layer):
+    """fluid.dygraph.Pool2D signature parity."""
+
+    def __init__(self, pool_size=-1, pool_type="max", pool_stride=1,
+                 pool_padding=0, global_pooling=False, ceil_mode=False,
+                 exclusive=True):
+        super().__init__()
+        self._args = (pool_size, pool_type, pool_stride, pool_padding,
+                      global_pooling, ceil_mode, exclusive)
+
+    def forward(self, x):
+        size, ptype, stride, pad, gp, cm, ex = self._args
+        return F.pool2d(x, size, ptype, stride, pad, cm, ex, gp)
+
+
 class Flatten(Layer):
     def __init__(self, start_axis=1, stop_axis=-1):
         super().__init__()
@@ -264,14 +353,23 @@ class Flatten(Layer):
                          "stop_axis": self._axes[1]}, out_slots=["Out"])[0]
 
 
-class ReLU(Layer):
-    def forward(self, x):
-        return F.relu(x)
+def _act_layer(cls_name, fn):
+    class _Act(Layer):
+        def forward(self, x):
+            return getattr(F, fn)(x)
+    _Act.__name__ = _Act.__qualname__ = cls_name
+    return _Act
 
 
-class ReLU6(Layer):
-    def forward(self, x):
-        return F.relu6(x)
+ReLU = _act_layer("ReLU", "relu")
+Sigmoid = _act_layer("Sigmoid", "sigmoid")
+Tanh = _act_layer("Tanh", "tanh")
+GELU = _act_layer("GELU", "gelu")
+Softplus = _act_layer("Softplus", "softplus")
+Silu = _act_layer("Silu", "silu")
+Mish = _act_layer("Mish", "mish")
+Hardswish = _act_layer("Hardswish", "hardswish")
+ReLU6 = _act_layer("ReLU6", "relu6")
 
 
 class LeakyReLU(Layer):
@@ -281,3 +379,112 @@ class LeakyReLU(Layer):
 
     def forward(self, x):
         return F.leaky_relu(x, self._slope)
+
+
+class Softmax(Layer):
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.softmax(x, self._axis)
+
+
+class PReLU(Layer):
+    """One alpha (``num_parameters=1``) or one a channel."""
+
+    def __init__(self, num_parameters=1, init=0.25):
+        super().__init__()
+        self.weight = self.create_parameter(
+            (num_parameters,),
+            default_initializer=initializer.Constant(init))
+
+    def forward(self, x):
+        return F.prelu(x, self.weight)
+
+
+class CrossEntropyLoss(Layer):
+    """``weight`` is taken and unused, as in the reference."""
+
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 soft_label=False, axis=-1):
+        super().__init__()
+        self._args = (ignore_index, reduction, soft_label, axis)
+
+    def forward(self, input, label):
+        ignore_index, reduction, soft_label, axis = self._args
+        return F.cross_entropy(input, label, ignore_index=ignore_index,
+                               reduction=reduction, soft_label=soft_label,
+                               axis=axis)
+
+
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return F.mse_loss(input, label, self._reduction)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(logit, label,
+                                                  self._reduction)
+
+
+def _deferred_layer(name, what):
+    """A class whose construction raises: ``what`` is not ported yet."""
+    class _Deferred(Layer):
+        def __init__(self, *args, **kwargs):
+            raise UnimplementedError(
+                f"nn.{name} needs {what}: ROADMAP Queue 1 item 4e")
+    _Deferred.__name__ = name
+    return _Deferred
+
+
+GRU = _deferred_layer("GRU", "the rnn_scan op (nn/rnn.py)")
+LSTM = _deferred_layer("LSTM", "the rnn_scan op (nn/rnn.py)")
+SimpleRNN = _deferred_layer("SimpleRNN", "the rnn_scan op (nn/rnn.py)")
+VarBase = torch.Tensor        # the eager tensor is torch's
+
+from .layers_ext import (BCELoss, Conv3D, Conv3DTranspose,  # noqa: E402,F401
+                         CosineSimilarity, CTCLoss, Dropout2D, GRUCell,
+                         KLDivLoss, L1Loss, LocalResponseNorm, LSTMCell,
+                         MarginRankingLoss, MaxUnPool2D, NLLLoss, Pad2D,
+                         PairwiseDistance, PixelShuffle, SmoothL1Loss,
+                         SpectralNorm, Unfold, Upsample,
+                         UpsamplingBilinear2D, UpsamplingNearest2D,
+                         ZeroPad2D)
+from .layers_20a import (  # noqa: E402,F401
+    ELU, SELU, Hardshrink, Softshrink, Softsign, Tanhshrink,
+    LogSigmoid, Hardtanh, LogSoftmax, AlphaDropout, Conv1d,
+    ConvTranspose1d, MaxPool1d, AvgPool1d, MaxPool3d, AvgPool3d,
+    AdaptiveAvgPool1d, AdaptiveMaxPool1d, AdaptiveAvgPool3d,
+    AdaptiveMaxPool3d, ConstantPad1d, ConstantPad2d, ConstantPad3d,
+    ReflectionPad1d, ReflectionPad2d, ReplicationPad1d,
+    ReplicationPad2d, ReplicationPad3d, Bilinear, RowConv, HSigmoid,
+    RNN, BiRNN, RNNCellBase, SimpleRNNCell, RNNMixin,
+    Dropout3d)
+
+# the 2.0-alpha lowercase-d spellings: the same classes
+Conv2d = Conv2D
+Conv3d = Conv3D
+ConvTranspose2d = Conv2DTranspose
+ConvTranspose3d = Conv3DTranspose
+BatchNorm1d = BatchNorm1D
+BatchNorm2d = BatchNorm2D
+BatchNorm3d = BatchNorm3D
+InstanceNorm2d = InstanceNorm2D
+MaxPool2d = MaxPool2D
+AvgPool2d = AvgPool2D
+AdaptiveAvgPool2d = AdaptiveAvgPool2D
+AdaptiveMaxPool2d = AdaptiveMaxPool2D
+Dropout2d = Dropout2D
+UpsamplingBilinear2d = UpsamplingBilinear2D
+UpsamplingNearest2d = UpsamplingNearest2D
+ZeroPad2d = ZeroPad2D

@@ -1,17 +1,29 @@
 """Functional nn API (paddle.nn.functional parity).
 
-Port of the functions of ``paddle_tpu/nn/functional.py`` that BERT and
-the vision and detection models use. Each dispatches through
-``trace_op`` into the op registry, so the AMP casts apply exactly as in
-the reference; ``interpolate``, which the reference runs through
-``trace_with_fn`` and not the registry, is torch code here.
+Port of ``paddle_tpu/nn/functional.py``. Each function dispatches
+through ``trace_op`` into the op registry, so the AMP casts apply
+exactly as in the reference; ``interpolate``, ``smooth_l1_loss`` and
+``cosine_similarity``, which the reference runs through
+``trace_with_fn`` and not the registry, are torch code here.
+``ctc_loss`` needs the ``warpctc`` op (ROADMAP Queue 1 item 4e) and
+raises.
 """
 from __future__ import annotations
+
+from typing import Optional, Sequence  # noqa: F401  (reference's names)
 
 import numpy as np
 import torch
 
+from ..core.enforce import UnimplementedError
 from ..dygraph.tracer import trace_op
+from ..dygraph.varbase import to_variable
+
+VarBase = torch.Tensor        # the eager tensor is torch's
+
+
+def _v(x):
+    return x if isinstance(x, torch.Tensor) else to_variable(x)
 
 
 def _pair(v):
@@ -39,6 +51,25 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     return out
 
 
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCHW"):
+    """The weight is [in, out / groups, kh, kw]; any ``output_padding``
+    (the ``conv2d_transpose`` op's rule)."""
+    attrs = {"strides": _pair(stride), "paddings": _pair(padding),
+             "dilations": _pair(dilation), "groups": groups,
+             "output_padding": _pair(output_padding),
+             "data_format": data_format}
+    out = trace_op("conv2d_transpose", {"Input": [x],
+                                        "Filter": [weight]},
+                   attrs, out_slots=["Output"])[0]
+    if bias is not None:
+        axis = -1 if data_format == "NHWC" else 1
+        out = trace_op("elementwise_add", {"X": [out], "Y": [bias]},
+                       {"axis": axis}, out_slots=["Out"])[0]
+    return out
+
+
 def linear(x, weight, bias=None):
     out = trace_op("matmul_v2", {"X": [x], "Y": [weight]},
                    out_slots=["Out"])[0]
@@ -48,8 +79,21 @@ def linear(x, weight, bias=None):
     return out
 
 
-def relu(x):
-    return trace_op("relu", {"X": [x]}, out_slots=["Out"])[0]
+def _unary(op):
+    def fn(x, name=None):
+        return trace_op(op, {"X": [x]}, out_slots=["Out"])[0]
+    fn.__name__ = op
+    return fn
+
+
+relu = _unary("relu")
+sigmoid = _unary("sigmoid")
+tanh = _unary("tanh")
+softplus = _unary("softplus")
+softsign = _unary("softsign")
+silu = _unary("silu")
+mish = _unary("mish")
+selu = _unary("selu")
 
 
 def relu6(x):
@@ -57,8 +101,40 @@ def relu6(x):
                     out_slots=["Out"])[0]
 
 
-def tanh(x):
-    return trace_op("tanh", {"X": [x]}, out_slots=["Out"])[0]
+def elu(x, alpha=1.0):
+    return trace_op("elu", {"X": [x]}, {"alpha": alpha},
+                    out_slots=["Out"])[0]
+
+
+def hardswish(x):
+    return trace_op("hard_swish", {"X": [x]}, out_slots=["Out"])[0]
+
+
+def hardsigmoid(x, slope=0.1666667, offset=0.5):
+    return trace_op("hard_sigmoid", {"X": [x]},
+                    {"slope": slope, "offset": offset}, out_slots=["Out"])[0]
+
+
+def swish(x):
+    return trace_op("swish", {"X": [x]}, {"beta": 1.0},
+                    out_slots=["Out"])[0]
+
+
+def prelu(x, weight):
+    """One alpha ("all") or one a channel ("channel")."""
+    mode = "all" if weight.numel() == 1 else "channel"
+    return trace_op("prelu", {"X": [x], "Alpha": [weight]},
+                    {"mode": mode}, out_slots=["Out"])[0]
+
+
+def softmax(x, axis=-1):
+    return trace_op("softmax", {"X": [x]}, {"axis": axis},
+                    out_slots=["Out"])[0]
+
+
+def log_softmax(x, axis=-1):
+    return trace_op("log_softmax", {"X": [x]}, {"axis": axis},
+                    out_slots=["Out"])[0]
 
 
 def leaky_relu(x, negative_slope=0.01):
@@ -154,17 +230,74 @@ def embedding(x, weight, padding_idx=None):
                      else padding_idx}, out_slots=["Out"])[0]
 
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
-    loss = trace_op("softmax_with_cross_entropy",
-                    {"Logits": [input], "Label": [label]},
-                    {"ignore_index": ignore_index, "return_softmax": False},
-                    out_slots=["Loss"])[0]
+def _reduce(loss, reduction):
+    """``mean`` / ``sum`` through the ops, else the loss as it is."""
     if reduction == "mean":
         return trace_op("mean", {"X": [loss]}, out_slots=["Out"])[0]
     if reduction == "sum":
         return trace_op("reduce_sum", {"X": [loss]}, {"reduce_all": True},
                         out_slots=["Out"])[0]
     return loss
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True):
+    """Softmax cross entropy; ``weight`` and ``use_softmax`` are taken
+    and unused, as in the reference."""
+    loss = trace_op("softmax_with_cross_entropy",
+                    {"Logits": [input], "Label": [label]},
+                    {"soft_label": soft_label, "ignore_index": ignore_index,
+                     "axis": axis, "return_softmax": False},
+                    out_slots=["Loss"])[0]
+    return _reduce(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False):
+    outs = trace_op("softmax_with_cross_entropy",
+                    {"Logits": [logits], "Label": [label]},
+                    {"soft_label": soft_label, "ignore_index": ignore_index,
+                     "axis": axis, "return_softmax": return_softmax},
+                    out_slots=["Loss", "Softmax"])
+    if return_softmax:
+        return outs[0], outs[1]
+    return outs[0]
+
+
+def mse_loss(input, label, reduction="mean"):
+    loss = trace_op("mse_loss", {"X": [input], "Label": [label]},
+                    out_slots=["Out"])[0]
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, reduction="mean"):
+    loss = trace_op("sigmoid_cross_entropy_with_logits",
+                    {"X": [logit], "Label": [label]},
+                    out_slots=["Out"])[0]
+    return _reduce(loss, reduction)
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW"):
+    """Four values on a 4-D tensor go to ``pad2d`` as they are; any other
+    form pads the last dims through ``pad``."""
+    x = _v(x)
+    if len(pad) == 4 and x.ndim == 4:
+        return trace_op("pad2d", {"X": [x]},
+                        {"paddings": list(pad), "mode": mode,
+                         "pad_value": value, "data_format": data_format},
+                        out_slots=["Out"])[0]
+    full = [0] * (2 * x.ndim)
+    full[-len(pad):] = list(pad)
+    return trace_op("pad", {"X": [x]},
+                    {"paddings": full, "pad_value": value},
+                    out_slots=["Out"])[0]
+
+
+def one_hot(x, num_classes):
+    return trace_op("one_hot_v2", {"X": [x]}, {"depth": num_classes},
+                    out_slots=["Out"])[0]
 
 
 def _triangle(d):
@@ -243,3 +376,169 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest"):
             x = torch.einsum("nchw,hH->ncHw" if dim == 2 else
                              "nchw,wW->nchW", x, wts)
     return x
+
+
+# ------------------------------------------------- extended functional
+def _interp_op(x, op, size, scale_factor, align_corners, align_mode,
+               nd=2):
+    attrs = {"align_corners": bool(align_corners),
+             "align_mode": int(align_mode)}
+    keys = {1: ["out_w"], 2: ["out_h", "out_w"],
+            3: ["out_d", "out_h", "out_w"]}[nd]
+    if size is not None:
+        size = [int(s) for s in (size if isinstance(size, (list, tuple))
+                                 else [size] * nd)]
+        for k, v in zip(keys, size):
+            attrs[k] = v
+    else:
+        sf = scale_factor if isinstance(scale_factor, (list, tuple)) \
+            else [scale_factor] * nd
+        attrs["scale"] = [float(s) for s in sf]
+    return trace_op(op, {"X": [x]}, attrs, out_slots=["Out"])[0]
+
+
+def interpolate_v2(x, size=None, scale_factor=None, mode="nearest",
+                   align_corners=False, align_mode=0,
+                   data_format="NCHW"):
+    """paddle.nn.functional.interpolate parity: the ``*_interp_v2`` ops,
+    with ``interpolate_op.h``'s coordinate rules for every mode."""
+    op = {"nearest": "nearest_interp_v2",
+          "bilinear": "bilinear_interp_v2",
+          "bicubic": "bicubic_interp_v2",
+          "trilinear": "trilinear_interp_v2",
+          "linear": "linear_interp_v2"}[mode]
+    nd = {"linear": 1, "trilinear": 3}.get(mode, 2)
+    return _interp_op(x, op, size, scale_factor, align_corners,
+                      align_mode, nd)
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False):
+    return interpolate_v2(x, size, scale_factor, mode, align_corners)
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True):
+    return trace_op("grid_sampler", {"X": [x], "Grid": [grid]},
+                    {"mode": mode, "padding_mode": padding_mode,
+                     "align_corners": bool(align_corners)},
+                    out_slots=["Output"])[0]
+
+
+def affine_grid(theta, out_shape, align_corners=True):
+    return trace_op("affine_grid", {"Theta": [theta]},
+                    {"output_shape": [int(s) for s in out_shape],
+                     "align_corners": bool(align_corners)},
+                    out_slots=["Output"])[0]
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
+    return trace_op("pixel_shuffle", {"X": [x]},
+                    {"upscale_factor": int(upscale_factor),
+                     "data_format": data_format}, out_slots=["Out"])[0]
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
+    return trace_op("unfold", {"X": [x]},
+                    {"kernel_sizes": _pair(kernel_sizes),
+                     "strides": _pair(strides), "paddings": _pair(paddings),
+                     "dilations": _pair(dilations)}, out_slots=["Y"])[0]
+
+
+def max_unpool2d(x, indices, kernel_size=None, stride=None, padding=0,
+                 output_size=None):
+    """Without ``output_size``, the inverse of the pool's shape:
+    (h - 1) stride - 2 padding + kernel (h * stride would misplace the
+    flat indices the pool recorded)."""
+    if output_size is None:
+        h, w = x.shape[-2:]
+        k = _pair(kernel_size)
+        s = _pair(stride or k)
+        p = _pair(padding)
+        output_size = [(h - 1) * s[0] - 2 * p[0] + k[0],
+                       (w - 1) * s[1] - 2 * p[1] + k[1]]
+    return trace_op("unpool", {"X": [x], "Indices": [indices]},
+                    {"unpooled_size": [int(v) for v in output_size[-2:]]},
+                    out_slots=["Out"])[0]
+
+
+def local_response_norm(x, size=5, alpha=1e-4, beta=0.75, k=1.0):
+    return trace_op("lrn", {"X": [x]},
+                    {"n": int(size), "alpha": float(alpha),
+                     "beta": float(beta), "k": float(k)},
+                    out_slots=["Out"])[0]
+
+
+# --------------------------------------------------------------- losses
+def l1_loss(input, label, reduction="mean"):
+    d = trace_op("elementwise_sub", {"X": [input], "Y": [label]},
+                 out_slots=["Out"])[0]
+    return _reduce(d.abs(), reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
+    """paddle 2.0's huber form: 0.5 z^2 / delta where |z| < delta, else
+    |z| - 0.5 delta, then reduced (the fluid ``smooth_l1_loss`` op sums a
+    sample, another contract: ``static.nn.smooth_l1``)."""
+    d = float(delta)
+    z = (_v(input) - _v(label)).abs()
+    return _reduce(torch.where(z < d, 0.5 * z * z / d, z - 0.5 * d),
+                        reduction)
+
+
+def kl_div(input, label, reduction="mean"):
+    return trace_op("kldiv_loss",
+                    {"X": [input], "Target": [label]},
+                    {"reduction": reduction}, out_slots=["Loss"])[0]
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100,
+             reduction="mean"):
+    ins = {"X": [input], "Label": [label]}
+    if weight is not None:
+        ins["Weight"] = [weight]
+    return trace_op("nll_loss", ins,
+                    {"ignore_index": int(ignore_index),
+                     "reduction": reduction},
+                    out_slots=["Out", "Total_weight"])[0]
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean"):
+    out = trace_op("bce_loss", {"X": [input], "Label": [label]},
+                   out_slots=["Out"])[0]
+    if weight is not None:
+        out = out * _v(weight)
+    return _reduce(out, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0,
+                        reduction="mean"):
+    out = trace_op("margin_rank_loss",
+                   {"Label": [label], "X1": [input],
+                    "X2": [other]}, {"margin": float(margin)},
+                   out_slots=["Out", "Activated"])[0]
+    return _reduce(out, reduction)
+
+
+def ctc_loss(log_probs, labels, input_lengths=None, label_lengths=None,
+             blank=0, reduction="mean", norm_by_times=False):
+    raise UnimplementedError(
+        "nn.functional.ctc_loss needs the warpctc op: ROADMAP Queue 1 "
+        "item 4e")
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    """The cosine along ``axis``, the norms' product floored at eps."""
+    a, b = _v(x1), _v(x2)
+    dot = (a * b).sum(dim=axis)
+    na = torch.sqrt(torch.square(a).sum(dim=axis))
+    nb = torch.sqrt(torch.square(b).sum(dim=axis))
+    return dot / torch.clamp_min(na * nb, eps)
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False):
+    d = trace_op("elementwise_sub", {"X": [x], "Y": [y]},
+                 out_slots=["Out"])[0]
+    return trace_op("p_norm", {"X": [d.abs() + epsilon]},
+                    {"porder": float(p), "axis": -1, "keepdim": keepdim},
+                    out_slots=["Out"])[0]

@@ -1,9 +1,9 @@
-"""NN ops: conv, pool, batch norm, layer norm, softmax cross-entropy,
-dropout, embedding lookup.
+"""NN ops: conv (2-D, 3-D, transposed, deformable), pool, the norms
+(batch, layer, instance, group, data, spectral, local response),
+softmax and the cross-entropies, dropout, embedding lookup, prelu and
+the regression losses.
 
-Port of the op types of ``paddle_tpu/ops/nn_ops.py`` that a BERT
-pretraining step, a ResNet training step and the static graph's
-builders (``softmax``, the 1.x ``lookup_table``) run. The JAX package's
+Port of every op type of ``paddle_tpu/ops/nn_ops.py``. The JAX package's
 custom grad for ``lookup_table_v2`` (scatter-add into the table) is
 what torch autograd does by itself. ``dropout`` keeps its custom grad
 (``dx = dOut * Mask``) for the static graph's grad op, which must not
@@ -361,3 +361,320 @@ def lookup_table(inputs, attrs):
     if ids.ndim >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
     return lookup_table_v2({"W": [w], "Ids": [ids]}, attrs)
+
+
+def _conv_transpose(inputs, attrs, nd):
+    """ref: conv_transpose_op.cc. The reference computes a transposed
+    conv as an lhs-dilated conv padded (K-1-p, K-1-p+output_padding),
+    K the dilated kernel extent (``nn_ops.py:104-123``), so it takes any
+    ``output_padding``. torch's own transposed conv computes the same
+    where it accepts the attrs (output_padding < max(stride, dilation));
+    past that it runs unpadded and its output is cropped by p at the
+    front and padded with the zeros the reference's padding gives at the
+    back. The filter is [in, out/groups, k...] in both libraries."""
+    x, w = inputs["Input"][0], inputs["Filter"][0]
+    strides = _pair(attrs.get("strides", [1] * nd), nd)
+    dilations = _pair(attrs.get("dilations", [1] * nd), nd)
+    groups = attrs.get("groups", 1) or 1
+    paddings = _pair(attrs.get("paddings", [0] * nd), nd)
+    out_pad = _pair(attrs.get("output_padding", [0] * nd) or [0] * nd, nd)
+    nhwc = _layout(attrs) == "NHWC"
+    xv = x.movedim(-1, 1) if nhwc else x
+    fn = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+    if all(0 <= op < max(s, d) and p >= 0 for op, s, d, p in
+           zip(out_pad, strides, dilations, paddings)):
+        out = fn(xv, w, None, strides, paddings, out_pad, groups, dilations)
+    else:
+        out = fn(xv, w, None, strides, 0, 0, groups, dilations)
+        for i in range(nd):
+            k = (w.shape[2 + i] - 1) * dilations[i] + 1
+            n = (xv.shape[2 + i] - 1) * strides[i] + k
+            length = n - 2 * paddings[i] + out_pad[i]
+            lack = paddings[i] + length - n
+            if lack > 0:
+                pad = [0, 0] * (nd - 1 - i) + [0, lack]
+                out = F.pad(out, pad)
+            out = out.narrow(2 + i, paddings[i], length)
+    return {"Output": [out.movedim(1, -1) if nhwc else out]}
+
+
+@register_op("conv2d_transpose")
+def conv2d_transpose(inputs, attrs):
+    return _conv_transpose(inputs, attrs, 2)
+
+
+@register_op("conv3d_transpose")
+def conv3d_transpose(inputs, attrs):
+    """ref: conv_transpose_op.cc, the 3-D variant."""
+    return _conv_transpose(inputs, attrs, 3)
+
+
+@register_op("depthwise_conv2d_transpose")
+def depthwise_conv2d_transpose(inputs, attrs):
+    x = inputs["Input"][0]
+    attrs = dict(attrs)
+    attrs["groups"] = x.shape[_channel_axis(x, attrs)]
+    return conv2d_transpose(inputs, attrs)
+
+
+@register_op("conv3d")
+def conv3d(inputs, attrs):
+    """ref: conv_op.cc, the 3-D variant: explicit padding (3 values, or
+    a (lo, hi) pair a dim), asymmetric pads applied to the input first."""
+    x, w = inputs["Input"][0], inputs["Filter"][0]
+    strides = _pair(attrs.get("strides", [1, 1, 1]), 3)
+    dilations = _pair(attrs.get("dilations", [1, 1, 1]), 3)
+    groups = attrs.get("groups", 1) or 1
+    pads = _conv_padding(attrs.get("paddings", [0, 0, 0]), 3)
+    nhwc = _layout(attrs) == "NHWC"
+    xv = x.movedim(-1, 1) if nhwc else x
+    if all(lo == hi >= 0 for lo, hi in pads):
+        sym = [lo for lo, _ in pads]
+    else:
+        flat = [v for lo, hi in reversed(pads) for v in (lo, hi)]
+        xv, sym = F.pad(xv, flat), [0, 0, 0]
+    out = F.conv3d(xv, w, None, strides, sym, dilations, groups)
+    return {"Output": [out.movedim(1, -1) if nhwc else out]}
+
+
+@register_op("deformable_conv", non_differentiable_inputs=("Mask",))
+def deformable_conv(inputs, attrs):
+    """Deformable conv v2 (ref: deformable_conv_op.cc): the input
+    bilinearly sampled at the offset-shifted taps (a tap outside the
+    image gives 0, a sample a whole pixel outside gives 0), modulated by
+    Mask, then one contraction with the filter. groups = 1 and
+    deformable_groups = 1, as in the reference."""
+    from ._sampling import bilinear_gather
+    x = inputs["Input"][0]
+    offset = inputs["Offset"][0]
+    mask = (inputs.get("Mask") or [None])[0]
+    w = inputs["Filter"][0]
+    strides = _pair(attrs.get("strides", [1, 1]))
+    paddings = _pair(attrs.get("paddings", [0, 0]))
+    dilations = _pair(attrs.get("dilations", [1, 1]))
+    groups = int(attrs.get("groups", 1) or 1)
+    d_groups = int(attrs.get("deformable_groups", 1) or 1)
+    enforce(groups == 1 and d_groups == 1,
+            "deformable_conv: only groups=1, deformable_groups=1 are "
+            "supported", InvalidArgumentError)
+    n, _, h, wid = x.shape
+    _, _, kh, kw = w.shape
+    oh = (h + 2 * paddings[0] - (dilations[0] * (kh - 1) + 1)) \
+        // strides[0] + 1
+    ow = (wid + 2 * paddings[1] - (dilations[1] * (kw - 1) + 1)) \
+        // strides[1] + 1
+
+    def grid(count, step, start, dtype):
+        return torch.arange(count, device=x.device, dtype=dtype) * step \
+            - start
+
+    dt = offset.dtype
+    oy, ox = grid(oh, strides[0], paddings[0], dt), \
+        grid(ow, strides[1], paddings[1], dt)
+    ky, kx = grid(kh, dilations[0], 0, dt), grid(kw, dilations[1], 0, dt)
+    base_y = oy[:, None, None, None] + ky[None, None, :, None]
+    base_x = ox[None, :, None, None] + kx[None, None, None, :]
+    # offsets [N, 2*kh*kw, oh, ow], (y, x) a tap
+    off = offset.reshape(n, kh * kw, 2, oh, ow)
+    off_y = off[:, :, 0].permute(0, 2, 3, 1).reshape(n, oh, ow, kh, kw)
+    off_x = off[:, :, 1].permute(0, 2, 3, 1).reshape(n, oh, ow, kh, kw)
+    sy, sx = base_y[None] + off_y, base_x[None] + off_x
+    valid = (sy > -1) & (sy < h) & (sx > -1) & (sx < wid)
+    cols = bilinear_gather(x, sy, sx, True) * valid.unsqueeze(1)
+    if mask is not None:                          # [N, C, oh, ow, kh, kw]
+        m = mask.reshape(n, kh * kw, oh, ow).permute(0, 2, 3, 1).reshape(
+            n, oh, ow, kh, kw)
+        cols = cols * m[:, None]
+    return {"Output": [torch.einsum("ncyxhw,ochw->noyx", cols, w)]}
+
+
+def _moments(x, dims):
+    """Mean and biased variance over ``dims``, kept as size-1 dims."""
+    var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+    return mean, var
+
+
+@register_op("instance_norm",
+             intermediate_outputs=("SavedMean", "SavedVariance"))
+def instance_norm(inputs, attrs):
+    """ref: instance_norm_op.cc: each (sample, channel) normalised over
+    its spatial dims with the biased variance. ``SavedMean`` and
+    ``SavedVariance`` are the statistics with every size-1 dim squeezed,
+    as the reference returns them (``jnp.squeeze``): at batch 1 they are
+    [C]."""
+    x = inputs["X"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    mean, var = _moments(x, tuple(range(2, x.ndim)))
+    y = (x - mean) * torch.rsqrt(var + eps)
+    bshape = [1, x.shape[1]] + [1] * (x.ndim - 2)
+    if inputs.get("Scale"):
+        y = y * inputs["Scale"][0].reshape(bshape)
+    if inputs.get("Bias"):
+        y = y + inputs["Bias"][0].reshape(bshape)
+    return {"Y": [y], "SavedMean": [mean.detach().squeeze()],
+            "SavedVariance": [var.detach().squeeze()]}
+
+
+@register_op("group_norm", intermediate_outputs=("Mean", "Variance"))
+def group_norm(inputs, attrs):
+    """ref: group_norm_op.cc (NCHW): each sample's channels in ``groups``
+    groups, each normalised with the biased variance; Mean and Variance
+    squeezed as the reference returns them."""
+    x = inputs["X"][0]
+    g = attrs.get("groups", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xr = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    mean, var = _moments(xr, tuple(range(2, xr.ndim)))
+    y = ((xr - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    bshape = [1, c] + [1] * (x.ndim - 2)
+    if inputs.get("Scale"):
+        y = y * inputs["Scale"][0].reshape(bshape)
+    if inputs.get("Bias"):
+        y = y + inputs["Bias"][0].reshape(bshape)
+    return {"Y": [y], "Mean": [mean.detach().squeeze()],
+            "Variance": [var.detach().squeeze()]}
+
+
+@register_op("data_norm")
+def data_norm(inputs, attrs):
+    """ref: data_norm_op.cc:302: normalisation by accumulated batch
+    statistics (CTR models): means = sum / size, scales = sqrt(size /
+    square_sum), with no mean^2 subtracted (the reference keeps
+    BatchSquareSum centred by its update rule)."""
+    x = inputs["X"][0]
+    bsize = inputs["BatchSize"][0]
+    means = inputs["BatchSum"][0] / bsize
+    scales = torch.sqrt(bsize / inputs["BatchSquareSum"][0])
+    return {"Y": [(x - means) * scales], "Means": [means],
+            "Scales": [scales]}
+
+
+@register_op("spectral_norm")
+def spectral_norm(inputs, attrs):
+    """ref: spectral_norm_op.cc: weight / sigma, sigma from
+    ``power_iters`` steps of power iteration started at the given U and
+    V. As in the reference the iteration is part of the function, so the
+    gradient flows through it too."""
+    w = inputs["Weight"][0]
+    u = inputs["U"][0].reshape(-1)
+    v = inputs["V"][0].reshape(-1)
+    dim = int(attrs.get("dim", 0))
+    eps = float(attrs.get("eps", 1e-12))
+    mat = w.movedim(dim, 0).reshape(w.shape[dim], -1)
+    for _ in range(int(attrs.get("power_iters", 1))):
+        v = mat.T @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = mat @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    return {"Out": [w / (u @ mat @ v)]}
+
+
+@register_op("lrn", intermediate_outputs=("MidOut",))
+def lrn(inputs, attrs):
+    """ref: lrn_op.cc: local response norm across channels, x / (k +
+    alpha * sum of x^2 over the n channels around)^beta."""
+    x = inputs["X"][0]
+    n_size = int(attrs.get("n", 5))
+    alpha = float(attrs.get("alpha", 1e-4))
+    beta = float(attrs.get("beta", 0.75))
+    k = float(attrs.get("k", 2.0))
+    half = n_size // 2
+    sqp = F.pad(torch.square(x), (0, 0, 0, 0, half, n_size - 1 - half))
+    acc = 0.0
+    for i in range(n_size):
+        acc = acc + sqp[:, i:i + x.shape[1]]
+    mid = k + alpha * acc
+    return {"Out": [x / torch.pow(mid, beta)], "MidOut": [mid]}
+
+
+@register_op("log_softmax")
+def log_softmax(inputs, attrs):
+    return {"Out": [torch.log_softmax(inputs["X"][0],
+                                      dim=attrs.get("axis", -1))]}
+
+
+@register_op("cross_entropy", non_differentiable_inputs=("Label",))
+def cross_entropy(inputs, attrs):
+    """ref: cross_entropy_op.cc: X holds probabilities; log clamped at
+    1e-20."""
+    x, label = inputs["X"][0], inputs["Label"][0]
+    if attrs.get("soft_label", False):
+        loss = -(label * torch.log(x.clamp_min(1e-20))).sum(
+            dim=-1, keepdim=True)
+    else:
+        lbl = label.squeeze(-1) if label.ndim == x.ndim else label
+        picked = x.gather(-1, lbl.long().unsqueeze(-1))
+        loss = -torch.log(picked.clamp_min(1e-20))
+    return {"Y": [loss]}
+
+
+@register_op("cross_entropy2", intermediate_outputs=("XShape", "MatchX"),
+             non_differentiable_inputs=("Label",))
+def cross_entropy2(inputs, attrs):
+    out = cross_entropy(inputs, attrs)
+    return {"Y": out["Y"], "MatchX": out["Y"], "XShape": [inputs["X"][0]]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def sigmoid_cross_entropy_with_logits(inputs, attrs):
+    """ref: sigmoid_cross_entropy_with_logits_op.cc: max(x, 0) - x*label
+    + log(1 + exp(-|x|)); ``ignore_index`` zeroes a position, and
+    ``normalize`` divides by the count of labels not ignored. Label is a
+    differentiable input, as in the reference."""
+    x, label = inputs["X"][0], inputs["Label"][0]
+    loss = torch.clamp_min(x, 0) - x * label + F.softplus(-torch.abs(x))
+    ignore = attrs.get("ignore_index", -1)
+    if ignore != -1:
+        loss = torch.where(label == ignore, 0.0, loss)
+    if attrs.get("normalize", False):
+        norm = (label != ignore).to(loss.dtype).sum().clamp_min(1.0)
+        loss = loss / norm
+    return {"Out": [loss]}
+
+
+@register_op("embedding", non_differentiable_inputs=("Ids",))
+def embedding(inputs, attrs):
+    return lookup_table_v2(inputs, attrs)
+
+
+@register_op("prelu")
+def prelu(inputs, attrs):
+    """ref: prelu_op.cc: x where x > 0, else alpha * x; mode "all" (one
+    alpha), "channel" (one a channel, NCHW) or "element" (alpha shaped
+    like x)."""
+    x, alpha = inputs["X"][0], inputs["Alpha"][0]
+    if attrs.get("mode", "all") == "channel":
+        alpha = alpha.reshape([1, -1] + [1] * (x.ndim - 2))
+    return {"Out": [torch.where(x > 0, x, alpha * x)]}
+
+
+@register_op("huber_loss", intermediate_outputs=("Residual",))
+def huber_loss(inputs, attrs):
+    x, y = inputs["X"][0], inputs["Y"][0]
+    d = attrs.get("delta", 1.0)
+    r = y - x
+    loss = torch.where(torch.abs(r) <= d, 0.5 * r * r,
+                       d * (torch.abs(r) - 0.5 * d))
+    return {"Out": [loss], "Residual": [r]}
+
+
+@register_op("mse_loss")
+def mse_loss(inputs, attrs):
+    return {"Out": [torch.square(inputs["X"][0] - inputs["Label"][0])]}
+
+
+@register_op("smooth_l1_loss", intermediate_outputs=("Diff",))
+def smooth_l1_loss(inputs, attrs):
+    """ref: smooth_l1_loss_op.h: summed over every dim but the first."""
+    x, y = inputs["X"][0], inputs["Y"][0]
+    sigma2 = attrs.get("sigma", 1.0) ** 2
+    d = x - y
+    if inputs.get("InsideWeight"):
+        d = d * inputs["InsideWeight"][0]
+    loss = torch.where(torch.abs(d) < 1.0 / sigma2,
+                       0.5 * d * d * sigma2, torch.abs(d) - 0.5 / sigma2)
+    if inputs.get("OutsideWeight"):
+        loss = loss * inputs["OutsideWeight"][0]
+    return {"Out": [loss.sum(dim=tuple(range(1, x.ndim)), keepdim=True)],
+            "Diff": [d]}

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where a train step of paddle_tpu_torch spends its time on one CUDA
-card: BERT-base O1 or O2, GPT-3 1.3B O2 or ResNet-50 O1; or a
-YOLOv3-416 predict.
+card: BERT-base O1 or O2, GPT-3 1.3B O2, ResNet-50 O1 or the eager
+CycleGAN step; or a YOLOv3-416 predict.
 
     python3 scripts/profile_torch_bert.py [--steps 3] [--amp O2]
     python3 scripts/profile_torch_bert.py --model gpt [--steps 3]
     python3 scripts/profile_torch_bert.py --model resnet50 --layout NHWC
+    python3 scripts/profile_torch_bert.py --model cyclegan [--steps 3]
     python3 scripts/profile_torch_bert.py --model yolov3 [--steps 5]
 
 Builds the step as chip_smoke.py does. BERT: BertForPretraining,
@@ -21,7 +22,10 @@ with GPT-3's warm-up and cosine schedule, ClipGradByGlobalNorm(1.0),
 micro-batch 4 at seq 2048; the update reported on its own as for BERT.
 ResNet-50: resnet50(num_classes=1000, data_format=--layout),
 cross_entropy, Momentum 0.1 / 0.9, O1, batch 256, 224 px, cudnn.benchmark
-on. Warms up two steps, then traces ``--steps`` steps with torch.profiler
+on. CycleGAN: phase ``cyclegan``'s networks, images and step
+(``chip_smoke.cyclegan_step``, 256 px, batch 1, fp32 with TF32 off as the
+phase runs it, or on with ``--tf32``, cudnn.benchmark on), both Adam
+updates reported on their own. Warms up two steps, then traces ``--steps`` steps with torch.profiler
 (CPU and CUDA activities). Prints the step's wall time, the device's busy
 time (union of kernel and copy intervals) and idle share, device time by
 kernel family and the top kernels; for BERT each of the port's flash
@@ -50,6 +54,8 @@ FAMILIES = [                      # (family, substrings of the kernel name)
                             "flash_bwd_dkv_kernel")),
     ("layout transform (cuDNN)", ("nchwToNhwc", "nhwcToNchw")),
     ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "BatchNorm")),
+    ("reflection pad", ("reflection_pad",)),
+    ("mean / variance (Welford)", ("Welford",)),
     ("pool", ("pool", "Pool")),
     ("conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "Conv")),
     ("matmul (cuBLAS)", ("gemm", "Kernel2", "cutlass", "sm90_xmma",
@@ -268,15 +274,36 @@ def profile_yolov3(dev, steps):
     return 0
 
 
+def build_cyclegan(dev, tf32):
+    import numpy as np
+    from paddle_tpu_torch import nn
+    from chip_smoke import (CYCLEGAN, cyclegan_images, cyclegan_nets,
+                            cyclegan_opts, cyclegan_step, port_cyclegan_api)
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    cfg, api = CYCLEGAN, port_cyclegan_api()
+    nets = cyclegan_nets(nn, cfg["ngf"], cfg["ndf"], cfg["blocks"])
+    opts = cyclegan_opts(api, nets, cfg["lr"], cfg["beta1"], cfg["beta2"])
+    for opt in opts:
+        opt.step = _ranged(UPDATE, opt.step)
+    a, b = (torch.from_numpy(x).to(dev) for x in cyclegan_images(
+        np.random.RandomState(0), cfg["batch"], cfg["px"]))
+    return None, (lambda x, y: cyclegan_step(api, nets, opts, x, y,
+                                             cfg["lam"])), (a, b)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--model", choices=("bert", "gpt", "resnet50",
-                                        "yolov3"),
+                                        "cyclegan", "yolov3"),
                     default="bert")
     ap.add_argument("--layout", choices=("NHWC", "NCHW"), default="NHWC")
     ap.add_argument("--amp", choices=("O1", "O2"), default="O1",
                     help="BERT's AMP level")
+    ap.add_argument("--tf32", action="store_true",
+                    help="CycleGAN's convolutions on TF32 (default off)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_bert: no CUDA device", file=sys.stderr)
@@ -296,6 +323,10 @@ def main():
     elif args.model == "gpt":
         model, train, batch = build_gpt(dev)
         print("[profile] gpt O2 (GPT-3 1.3B, batch 4, seq 2048)")
+    elif args.model == "cyclegan":
+        model, train, batch = build_cyclegan(dev, args.tf32)
+        print(f"[profile] cyclegan (256 px, batch 1, fp32, TF32 "
+              f"{'on' if args.tf32 else 'off'}, cudnn.benchmark on)")
     else:
         model, train, batch = build_bert(dev, args.amp)
         print(f"[profile] bert {args.amp}")
@@ -346,7 +377,8 @@ def main():
                 update_us += sum(k.duration for k in e.kernels)
                 update_n += len(e.kernels)
     if not resnet:
-        print(f"[profile] {UPDATE} (clip, decay, op, masters): "
+        print(f"[profile] {UPDATE} (clip, decay, op, masters; both Adams "
+              f"for cyclegan): "
               f"{update_us / n / 1e3:.3f} ms/step of device time in "
               f"{update_n / n:.0f} kernels/step")
     print(f"[profile] steps {n}  wall {wall_us / n / 1e3:.3f} ms/step  "

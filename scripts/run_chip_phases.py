@@ -8,8 +8,8 @@ commit unpacked with ``git archive <commit> | tar -x -C build/parent``);
 its ``chip_smoke.py`` and ``paddle_tpu_torch`` are imported, its kernels
 built into its own ``build/``. PHASE is one of ``bert`` (phase bert, then
 one O1 step under the profiler: launches, host syncs, device busy),
-``bert_o2``, ``eager_bert``, ``tensor_api`` and ``fp16`` (phase timing
-at fp16). To compare two commits on one card, run them in turns in one
+``bert_o2``, ``eager_bert``, ``tensor_api``, ``nn_api``, ``nn_layers``,
+``cyclegan`` and ``fp16`` (phase timing at fp16). To compare two commits on one card, run them in turns in one
 call, one process each, e.g. parent, change, change, parent.
 """
 import os
@@ -69,6 +69,12 @@ def main():
             cs.phase_eager_bert(tpt, fa, dev)
         elif ph == "tensor_api":
             cs.phase_tensor_api(dev)
+        elif ph == "nn_api":
+            cs.phase_nn_api(dev)
+        elif ph == "nn_layers":
+            cs.phase_nn_layers(tpt, dev)
+        elif ph == "cyclegan":
+            cs.phase_cyclegan(tpt, dev)
         elif ph == "fp16":
             cs.phase_timing(fa, dev, torch.float16)
         else:

@@ -267,14 +267,14 @@ def test_builder_of_an_op_the_port_lacks_builds_and_raises_at_run():
     as the JAX package does for an unregistered op."""
     from paddle_tpu_torch.core.registry import OpInfoMap
     api = chip_smoke.port_static_api()
-    assert not OpInfoMap.instance().has("hinge_loss")
+    assert not OpInfoMap.instance().has("warpctc")
     prog, startup = tpt.Program(), tpt.Program()
     with api.static.program_guard(prog, startup):
         x = api.static.data("x", [2, 5], "float32")
         y = api.static.data("y", [2, 5], "float32")
-        loss = api.static.nn.hinge_loss(x, y)
+        loss = api.static.nn.warpctc(x, y)
     assert prog.global_block().var(loss.name).shape is None
-    with pytest.raises(tpt.core.enforce.NotFoundError, match="hinge_loss"):
+    with pytest.raises(tpt.core.enforce.NotFoundError, match="warpctc"):
         tpt.Executor().run(prog, feed={"x": np.ones((2, 5), np.float32),
                                        "y": np.ones((2, 5), np.float32)},
                            fetch_list=[loss], scope=tpt.Scope())

@@ -178,6 +178,26 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      card (equal bits or not), 2 warm-up and 5 timed steps: step_ms,
      images/s, peak memory, conv TFLOP/s, and the launches, host syncs,
      device busy and idle and conv device time of a profiled step.
+  30. cf_api: the 97 op types of the control-flow slice
+     (control_flow_ops, array_ops, parity_ops, misc_ops, special_ops),
+     every case of paddle_tpu_torch/testing/cf_cases.py on the card
+     against the port on the CPU, forward and gradient, the control-flow
+     ops on their published Program, the error cases raising; the host
+     syncs of one call of the cases that read a predicate, an index or
+     data on the host;
+  31. control_flow: tests/test_control_flow.py's programs (CF_PROGRAMS)
+     on the card against the CPU from the same parameters, with the
+     host syncs of each run;
+  32. ptb_lm, the main path of that slice: the PTB-large LSTM language
+     model (66,022,000 parameters, fp32, TF32 off) as a fluid script:
+     StaticRNN over 35 steps of 2 layers, SGD(1.0) through
+     append_backward and Executor; the first step card against CPU, the
+     static.nn.lstm (cudnn_lstm) route against the StaticRNN route,
+     2 warm-up and 5 timed steps of each at dropout 0.65 (step_ms,
+     tokens/s, peak memory; launches, host syncs, busy and idle of a
+     profiled step) and 35 greedy tokens through While and tensor
+     arrays, equal on the card and the CPU, with ms and host syncs a
+     token.
 Phase 3 also times K1-K3 in fp16 at BERT-base.
 The last two lines are the kernels' JSON record (each kernel at fp32,
 its launches from phase 7 and, as launches_eager_bert, from phase 25;
@@ -2287,10 +2307,10 @@ def port_static_api():
     from paddle_tpu_torch import io, static
     from paddle_tpu_torch.nn import ParamAttr
     from paddle_tpu_torch.nn.initializer import Uniform
-    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.optimizer import SGD, Momentum
     return types.SimpleNamespace(pt=pt, static=static, io=io,
                                  ParamAttr=ParamAttr, Uniform=Uniform,
-                                 Momentum=Momentum)
+                                 Momentum=Momentum, SGD=SGD)
 
 
 # tests/test_book.py's six programs: (steps, SGD learning rate)
@@ -3734,17 +3754,41 @@ def phase_eager_bert(tpt, fa, dev):
     return launches
 
 
-def _op_case_run(case, device):
-    """One case of op_cases through the port's op on ``device``: its
-    outputs and (``grad``) the gradients for seeded cotangents on its
-    float outputs, all moved to the CPU."""
-    from paddle_tpu_torch.core.registry import OpInfoMap, generic_vjp_grad
+@contextlib.contextmanager
+def case_env(case, device):
+    """A case's surroundings in the port on ``device``: its setup done,
+    its Program published as the executing one, its ``{tmp}`` attrs
+    resolved to a directory under build/ (yielded: the attrs)."""
+    import importlib
+    import os
+    from paddle_tpu_torch.core.executor import program_ctx
+    from paddle_tpu_torch.core.program import Program
     from paddle_tpu_torch.device import op_device
+    tmp = os.path.abspath(os.path.join("build", "op_cases",
+                                       torch.device(device).type))
+    os.makedirs(tmp, exist_ok=True)
+    if getattr(case, "setup", None) is not None:
+        case.setup(lambda m: importlib.import_module(
+            "paddle_tpu_torch.ops." + m), tmp)
+    attrs = {k: v.replace("{tmp}", tmp) if isinstance(v, str) else v
+             for k, v in case.attrs.items()}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(op_device(device))
+        if getattr(case, "program", None) is not None:
+            stack.enter_context(program_ctx(Program.from_json(case.program)))
+        yield attrs
+
+
+def _op_case_run(case, device):
+    """One case of op_cases (or nn_cases, cf_cases) through the port's op
+    on ``device``: its outputs and (``grad``) the gradients for seeded
+    cotangents on its float outputs, all moved to the CPU."""
+    from paddle_tpu_torch.core.registry import OpInfoMap, generic_vjp_grad
     opdef = OpInfoMap.instance().get(case.op)
     ins = {s: [torch.from_numpy(np.array(v)).to(device) for v in vs]
            for s, vs in case.inputs.items()}
-    with op_device(device):
-        outs = opdef.compute(ins, dict(case.attrs))
+    with case_env(case, device) as attrs:
+        outs = opdef.compute(ins, dict(attrs))
         grads = {}
         if case.grad:
             rs = np.random.RandomState(99)
@@ -3753,7 +3797,7 @@ def _op_case_run(case, device):
                 for s, vs in outs.items()
                 if s not in opdef.intermediate_outputs and s != "XShape"
                 and any(v.is_floating_point() for v in vs)}
-            grads = generic_vjp_grad(opdef, ins, {}, cts, dict(case.attrs))
+            grads = generic_vjp_grad(opdef, ins, {}, cts, dict(attrs))
     cpu = {s: [v.detach().cpu() for v in vs] for s, vs in outs.items()}
     cpu.update({"d" + s: [v.cpu() for v in vs if v is not None]
                 for s, vs in grads.items()})
@@ -4270,6 +4314,909 @@ def phase_cyclegan(tpt, dev):
     return med
 
 
+# ------------------------------------------------------------ control flow
+# tests/test_control_flow.py's programs, built by the same code in both
+# packages (api: port_static_api() or the JAX package's namespace). Each
+# builder returns dict(main, startup, feed, fetch, params): params are
+# values to set in the scope after the startup run, by name.
+def _cf_new(api):
+    return api.static.Program(), api.static.Program()
+
+
+def _name(v):
+    return getattr(v, "name", v)
+
+
+def cf_while_basic(api):
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        n = st.fill_constant([1], "int64", 10)
+        i = st.fill_constant([1], "int64", 0)
+        s = st.fill_constant([1], "float32", 0.0)
+        i2, s2 = st.while_loop(lambda i, s: st.less_than(i, n),
+                               lambda i, s: [i + 1, s + 2.0], [i, s])
+    return dict(main=main, startup=startup, feed={},
+                fetch=[i2.name, s2.name], params={})
+
+
+def cf_while_nested(api):
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        n = st.fill_constant([1], "int64", 3)
+        i = st.fill_constant([1], "int64", 0)
+        s = st.fill_constant([1], "float32", 0.0)
+
+        def outer_body(i, s):
+            j = st.fill_constant([1], "int64", 0)
+            _, s_in = st.while_loop(lambda j, s_: st.less_than(j, n),
+                                    lambda j, s_: [j + 1, s_ + 1.0], [j, s])
+            return [i + 1, s_in]
+
+        _, s2 = st.while_loop(lambda i, s: st.less_than(i, n), outer_body,
+                              [i, s])
+    return dict(main=main, startup=startup, feed={}, fetch=[s2.name],
+                params={})
+
+
+def cf_while_grad(api, max_trip_count=8):
+    """s = w * 2^5 through a while loop: ds/dw = 32. Bounded (the JAX
+    package's masked scan) unless ``max_trip_count`` is None."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        w = st.create_parameter([1], "float32", name="w")
+        n = st.fill_constant([1], "int64", 5)
+        i = st.fill_constant([1], "int64", 0)
+        s = st.assign(w)
+        _, s2 = st.while_loop(lambda i, s: st.less_than(i, n),
+                              lambda i, s: [i + 1, s * 2.0], [i, s],
+                              max_trip_count=max_trip_count)
+        loss = st.nn.mean(s2)
+        pg = st.append_backward(loss, parameter_list=["w"], program=main)
+    return dict(main=main, startup=startup, feed={},
+                fetch=[loss.name, _name(pg[0][1])],
+                params={"w": np.array([0.75], np.float32)})
+
+
+def cf_while_block(api):
+    """fluid's While mutating parent vars in place."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        limit = st.fill_constant([1], "int64", 4)
+        i = st.fill_constant([1], "int64", 0)
+        acc = st.fill_constant([1], "float32", 1.0)
+        c = st.less_than(i, limit)
+        w = st.While(c)
+        with w.block():
+            st.assign(acc * 3.0, acc)
+            st.increment(i)
+            st.less_than(i, limit, out=c)
+    return dict(main=main, startup=startup, feed={},
+                fetch=[acc.name, i.name], params={})
+
+
+def cf_cond(api, pred_val):
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.fill_constant([2], "float32", 3.0)
+        pred = st.fill_constant([1], "bool", pred_val)
+        r = st.cond(pred, lambda: x * 2.0, lambda: x - 1.0)
+    return dict(main=main, startup=startup, feed={}, fetch=[r.name],
+                params={})
+
+
+def cf_cond_grad(api):
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        w = st.create_parameter([2], "float32", name="w")
+        pred = st.fill_constant([1], "bool", True)
+        r = st.cond(pred, lambda: w * 5.0, lambda: w * 100.0)
+        loss = st.nn.reduce_sum(r)
+        pg = st.append_backward(loss, parameter_list=["w"], program=main)
+    return dict(main=main, startup=startup, feed={},
+                fetch=[_name(pg[0][1])],
+                params={"w": np.array([0.5, -2.0], np.float32)})
+
+
+def cf_cond_nan_untaken(api):
+    """The untaken branch would give a NaN gradient (sqrt at -1): it
+    must not reach w's."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        w = st.create_parameter([2], "float32", name="w")
+        pred = st.fill_constant([1], "bool", True)
+        r = st.cond(pred, lambda: w * 3.0,
+                    lambda: st.nn.sqrt(w - 10.0))
+        loss = st.nn.reduce_sum(r)
+        pg = st.append_backward(loss, parameter_list=["w"], program=main)
+    return dict(main=main, startup=startup, feed={},
+                fetch=[r.name, _name(pg[0][1])],
+                params={"w": np.array([0.5, -2.0], np.float32)})
+
+
+def cf_case_chain(api):
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.fill_constant([1], "float32", 0.3)
+        one = st.fill_constant([1], "float32", 1.0)
+        two = st.fill_constant([1], "float32", 2.0)
+        r = st.case([(st.greater_than(x, one), lambda: x * 10.0),
+                     (st.less_than(x, two), lambda: x + 100.0)],
+                    default=lambda: x * 0.0)
+    return dict(main=main, startup=startup, feed={}, fetch=[r.name],
+                params={})
+
+
+def cf_switch_case(api, idx_val):
+    """Index 0 and 1 pick their arm; any other (negative too) the
+    default."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.fill_constant([2], "float32", 3.0)
+        idx = st.fill_constant([1], "int32", idx_val)
+        r = st.switch_case(idx, [lambda: x * 2.0, lambda: x * 10.0],
+                           default=lambda: x * 0.0)
+    return dict(main=main, startup=startup, feed={}, fetch=[r.name],
+                params={})
+
+
+def cf_static_rnn(api):
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.data("x", [4, 2, 3])
+        h0 = st.fill_constant([2, 3], "float32", 1.0)
+        rnn = st.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            h = rnn.memory(init=h0)
+            nh = h * 0.5 + xt
+            rnn.update_memory(h, nh)
+            rnn.step_output(nh)
+        hs = rnn()
+    feed = {"x": np.random.RandomState(5).randn(4, 2, 3).astype(np.float32)}
+    return dict(main=main, startup=startup, feed=feed, fetch=[hs.name],
+                params={})
+
+
+def cf_static_rnn_grad(api):
+    """loss = sum_t h_t, h_t = h_{t-1} + w x_t: dw = sum_t (T - t) x_t."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.data("x", [4, 2, 1])
+        w = st.create_parameter([1], "float32", name="w")
+        h0 = st.fill_constant([2, 1], "float32", 0.0)
+        rnn = st.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            h = rnn.memory(init=h0)
+            nh = h + xt * w
+            rnn.update_memory(h, nh)
+            rnn.step_output(nh)
+        hs = rnn()
+        loss = st.nn.reduce_sum(hs)
+        pg = st.append_backward(loss, parameter_list=["w"], program=main)
+    feed = {"x": np.arange(8, dtype=np.float32).reshape(4, 2, 1)}
+    return dict(main=main, startup=startup, feed=feed,
+                fetch=[loss.name, _name(pg[0][1])],
+                params={"w": np.array([1.5], np.float32)})
+
+
+def cf_nmt_decode(api, vocab=7, hidden=5, max_len=6):
+    """Greedy decode until EOS or max_len: embed the previous token,
+    project, argmax (tests/book/test_machine_translation.py's shape)."""
+    st = api.static
+    rs = np.random.RandomState(0)
+    emb_w = rs.randn(vocab, hidden).astype(np.float32)
+    proj_w = rs.randn(hidden, vocab).astype(np.float32)
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        emb = st.create_parameter([vocab, hidden], "float32", name="emb")
+        proj = st.create_parameter([hidden, vocab], "float32", name="proj")
+        bos = st.fill_constant([1], "int64", 1)
+        eos = st.fill_constant([1], "int64", 0)
+        step = st.fill_constant([1], "int64", 0)
+        limit = st.fill_constant([1], "int64", max_len)
+        tokens = st.fill_constant([max_len], "int64", 0)
+
+        def cond_fn(step, tok, tokens):
+            return st.logical_and(st.less_than(step, limit),
+                                  st.not_equal(tok, eos))
+
+        def body_fn(step, tok, tokens):
+            logits = st.nn.matmul(st.nn.embedding_lookup(emb, tok), proj)
+            nxt = st.nn.argmax(logits, axis=-1)
+            return [step + 1, nxt, st.nn.scatter_write(tokens, step, nxt)]
+
+        n_step, _, toks = st.while_loop(cond_fn, body_fn,
+                                        [step, bos, tokens])
+    return dict(main=main, startup=startup, feed={},
+                fetch=[n_step.name, toks.name],
+                params={"emb": emb_w, "proj": proj_w})
+
+
+def cf_cond_outer_var(api, pred_val):
+    """A branch returning an outer var verbatim."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.fill_constant([2], "float32", 3.0)
+        y = st.fill_constant([2], "float32", 7.0)
+        pred = st.fill_constant([1], "bool", pred_val)
+        r = st.cond(pred, lambda: x, lambda: y)
+    return dict(main=main, startup=startup, feed={}, fetch=[r.name],
+                params={})
+
+
+def cf_while_invariant(api):
+    """The body hands back an untouched outer var as a loop var."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        n = st.fill_constant([1], "int64", 3)
+        k = st.fill_constant([1], "float32", 5.0)
+        i = st.fill_constant([1], "int64", 0)
+        s = st.fill_constant([1], "float32", 0.0)
+        _, s2 = st.while_loop(lambda i, s: st.less_than(i, n),
+                              lambda i, s: [i + 1, k], [i, s])
+    return dict(main=main, startup=startup, feed={}, fetch=[s2.name],
+                params={})
+
+
+def cf_case_no_default(api):
+    """No default: the last pair's fn runs when no predicate holds."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.fill_constant([1], "float32", 5.0)
+        one = st.fill_constant([1], "float32", 1.0)
+        r = st.case([(st.less_than(x, one), lambda: x * 10.0),
+                     (st.greater_than(x, one * 100.0), lambda: x + 100.0)])
+    return dict(main=main, startup=startup, feed={}, fetch=[r.name],
+                params={})
+
+
+def cf_dynamic_rnn(api):
+    """DynamicRNN's running sum on the dense path ([B, T, D] rows of one
+    length, no @seq_len companion), sequence_last_step by pool."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.data("drx", [2, 3, 2])
+        rnn = st.DynamicRNN()
+        with rnn.block():
+            w = rnn.step_input(x)
+            prev = rnn.memory(shape=[2], value=0.0)
+            cur = st.nn.elementwise_add(w, prev)
+            rnn.update_memory(prev, cur)
+            rnn.output(cur)
+        out = rnn()
+    feed = {"drx": np.array([[[1, 1], [2, 2], [3, 3]],
+                             [[10, 10], [0, 0], [-4, 4]]], np.float32)}
+    return dict(main=main, startup=startup, feed=feed, fetch=[out.name],
+                params={})
+
+
+def cf_dynamic_rnn_memory(api):
+    """memory(shape=[7], value=1.5): the initial state's width and
+    fill, seen at t=0."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.data("drx2", [1, 2, 4])
+        rnn = st.DynamicRNN()
+        with rnn.block():
+            w = rnn.step_input(x)
+            prev = rnn.memory(shape=[7], value=1.5)
+            cur = st.nn.elementwise_add(st.nn.fc(w, size=7), prev)
+            rnn.update_memory(prev, cur)
+            rnn.output(prev)
+        out = rnn()
+    return dict(main=main, startup=startup,
+                feed={"drx2": np.ones((1, 2, 4), np.float32)},
+                fetch=[out.name], params={})
+
+
+def cf_array_decode(api, steps=5):
+    """While in block form over a dense tensor array: write a value a
+    step, read the last back into the carry, stack them all, and the
+    array's length (its capacity on the dense path)."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        step = st.fill_constant([1], "int64", 0)
+        limit = st.fill_constant([1], "int64", steps)
+        v = st.fill_constant([1, 3], "float32", 1.0)
+        arr = st.nn.array_write(v, step, max_size=steps + 2)
+        c = st.less_than(step, limit)
+        loop = st.While(c)
+        with loop.block():
+            last = st.nn.array_read(arr, step)
+            st.nn.array_write(st.nn.scale(last, scale=2.0, bias=0.5),
+                              step + 1, array=arr)
+            st.increment(step)
+            st.less_than(step, limit, out=c)
+        stacked, index = st.nn.tensor_array_to_tensor(arr, axis=0,
+                                                      use_stack=True)
+        length = st.nn.array_length(arr)
+    return dict(main=main, startup=startup, feed={},
+                fetch=[stacked.name, index.name, length.name, step.name],
+                params={})
+
+
+def cf_static_rnn_dropout(api):
+    """A dropout in a StaticRNN body draws one mask for all steps (a
+    body traced once under lax.scan takes one key): x_t = 1 for every
+    t, so every step's output is that mask."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.data("x", [6, 4, 16])
+        rnn = st.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            rnn.step_output(st.nn.dropout(
+                xt, 0.5, dropout_implementation="upscale_in_train"))
+        hs = rnn()
+    return dict(main=main, startup=startup,
+                feed={"x": np.ones((6, 4, 16), np.float32)},
+                fetch=[hs.name], params={})
+
+
+# name -> builder(api) (test_control_flow.py's cases, then the port's)
+CF_PROGRAMS = {
+    "while_basic": cf_while_basic,
+    "while_nested": cf_while_nested,
+    "while_grad": cf_while_grad,
+    "while_block": cf_while_block,
+    "cond_true": functools.partial(cf_cond, pred_val=True),
+    "cond_false": functools.partial(cf_cond, pred_val=False),
+    "cond_grad": cf_cond_grad,
+    "case_chain": cf_case_chain,
+    **{f"switch_case_{i}": functools.partial(cf_switch_case, idx_val=i)
+       for i in (0, 1, 7, -1, -7, 2, 100)},
+    "static_rnn": cf_static_rnn,
+    "static_rnn_grad": cf_static_rnn_grad,
+    "nmt_decode": cf_nmt_decode,
+    "cond_outer_true": functools.partial(cf_cond_outer_var, pred_val=True),
+    "cond_outer_false": functools.partial(cf_cond_outer_var,
+                                          pred_val=False),
+    "while_invariant": cf_while_invariant,
+    "case_no_default": cf_case_no_default,
+    "dynamic_rnn": cf_dynamic_rnn,
+    "dynamic_rnn_memory": cf_dynamic_rnn_memory,
+    "array_decode": cf_array_decode,
+    "cond_nan_untaken": cf_cond_nan_untaken,
+}
+
+
+def run_cf(api, built, exe, scope, start=None):
+    """Run a CF_PROGRAMS program: its startup, then ``start`` (values by
+    name; default the builder's params), then the main program once.
+    Returns the fetches as numpy arrays."""
+    with api.pt.scope_guard(scope):
+        exe.run(built["startup"], feed={}, fetch_list=[], scope=scope)
+        for n, v in (built["params"] if start is None else start).items():
+            scope.var(n).set(api.pt.TpuTensor(v))
+        out = exe.run(built["main"], feed=built["feed"],
+                      fetch_list=built["fetch"], scope=scope)
+    return [np.asarray(v) for v in out]
+
+
+# ------------------------------------------------------------- PTB LM
+# Zaremba, Sutskever and Vinyals 2014, section 4.1, the large model, as
+# PaddlePaddle/models PaddleNLP/language_model ships it (--model_type
+# large, the StaticRNN form): 2 layers, hidden 1500, 35 steps, batch 20,
+# vocabulary 10,000, uniform init +-0.04, dropout 0.65, SGD at lr 1.0.
+PTB_LARGE = dict(vocab=10000, hidden=1500, layers=2, steps=35, batch=20,
+                 init_scale=0.04, dropout=0.65, lr=1.0)
+
+
+def ptb_param_count(cfg):
+    v, h, layers = cfg["vocab"], cfg["hidden"], cfg["layers"]
+    return v * h + layers * (2 * h * 4 * h + 4 * h) + h * v + v
+
+
+def _lstm_cell(nn, x, h_prev, c_prev, w, b):
+    """One LSTM step as the PTB script writes it: concat([x, h]) . W + b,
+    split into i, f, g, o (cuDNN's order), then c and h."""
+    gates = nn.elementwise_add(nn.matmul(nn.concat([x, h_prev], axis=1), w),
+                               b)
+    i, f, g, o = nn.split(gates, num=4, axis=1)
+    c = nn.elementwise_add(nn.elementwise_mul(nn.sigmoid(f), c_prev),
+                           nn.elementwise_mul(nn.sigmoid(i), nn.tanh(g)))
+    return nn.elementwise_mul(nn.sigmoid(o), nn.tanh(c)), c
+
+
+def _ptb_lstm_params(api, cfg):
+    st = api.static
+    h = cfg["hidden"]
+    uni = api.Uniform(-cfg["init_scale"], cfg["init_scale"])
+    ws = [st.create_parameter([2 * h, 4 * h], "float32", name=f"lstm_w{k}",
+                              default_initializer=uni)
+          for k in range(cfg["layers"])]
+    bs = [st.create_parameter([4 * h], "float32", name=f"lstm_b{k}",
+                              is_bias=True) for k in range(cfg["layers"])]
+    return ws, bs
+
+
+def _ptb_softmax_params(api, cfg):
+    st = api.static
+    uni = api.Uniform(-cfg["init_scale"], cfg["init_scale"])
+    sw = st.create_parameter([cfg["hidden"], cfg["vocab"]], "float32",
+                             name="softmax_w", default_initializer=uni)
+    sb = st.create_parameter([cfg["vocab"]], "float32", name="softmax_b",
+                             is_bias=True)
+    return sw, sb
+
+
+def ptb_lm_program(api, cfg, dropout=0.0, route="static_rnn"):
+    """The PTB LM training program: embedding, dropout, the 2-layer LSTM
+    (``route`` "static_rnn": StaticRNN over the cells; "cudnn_lstm":
+    static.nn.lstm), dropout on each layer's h, the softmax projection,
+    softmax_with_cross_entropy, the mean over batch * steps tokens, and
+    SGD(lr).minimize. Feeds: x and y [batch, steps] int64, init_h and
+    init_c [layers, batch, hidden]. Returns (main, startup, loss)."""
+    st = api.static
+    nn = st.nn
+    b, t, h = cfg["batch"], cfg["steps"], cfg["hidden"]
+    layers = cfg["layers"]
+    main, startup = st.Program(), st.Program()
+    with st.program_guard(main, startup):
+        x = st.data("x", [b, t], "int64")
+        y = st.data("y", [b, t], "int64")
+        h0 = st.data("init_h", [layers, b, h], "float32")
+        c0 = st.data("init_c", [layers, b, h], "float32")
+        uni = api.Uniform(-cfg["init_scale"], cfg["init_scale"])
+        emb = nn.embedding(x, size=[cfg["vocab"], h], param_attr=api.ParamAttr(
+            name="embedding_para", initializer=uni))
+        if dropout:
+            emb = nn.dropout(emb, dropout,
+                             dropout_implementation="upscale_in_train")
+        seq = nn.transpose(emb, axis=[1, 0, 2])                # [T, B, H]
+        if route == "static_rnn":
+            ws, bs = _ptb_lstm_params(api, cfg)
+            sw, sb = _ptb_softmax_params(api, cfg)
+            inits = [[nn.reshape(nn.slice(s0, axes=[0], starts=[k],
+                                          ends=[k + 1]), shape=[b, h])
+                      for k in range(layers)] for s0 in (h0, c0)]
+            rnn = st.StaticRNN()
+            with rnn.step():
+                inp = rnn.step_input(seq)
+                for k in range(layers):
+                    h_prev = rnn.memory(init=inits[0][k])
+                    c_prev = rnn.memory(init=inits[1][k])
+                    hk, ck = _lstm_cell(nn, inp, h_prev, c_prev, ws[k], bs[k])
+                    rnn.update_memory(h_prev, hk)
+                    rnn.update_memory(c_prev, ck)
+                    inp = hk
+                    if dropout:
+                        inp = nn.dropout(
+                            hk, dropout,
+                            dropout_implementation="upscale_in_train")
+                rnn.step_output(inp)
+            out = rnn()
+        else:
+            out, _, _ = nn.lstm(seq, h0, c0, max_len=t, hidden_size=h,
+                                num_layers=layers, default_initializer=uni)
+            if dropout:
+                out = nn.dropout(out, dropout,
+                                 dropout_implementation="upscale_in_train")
+            sw, sb = _ptb_softmax_params(api, cfg)
+        flat = nn.reshape(nn.transpose(out, axis=[1, 0, 2]), shape=[b * t, h])
+        logits = nn.elementwise_add(nn.matmul(flat, sw), sb)
+        loss = nn.mean(nn.softmax_with_cross_entropy(
+            logits, nn.reshape(y, shape=[b * t, 1])))
+        api.SGD(learning_rate=cfg["lr"]).minimize(loss)
+    return main, startup, loss
+
+
+def ptb_feeds(cfg, seed, device=None):
+    """A batch of token ids and next-token labels from ``seed`` (the
+    corpus is not in the repository) and zero initial states."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg["vocab"], (cfg["batch"], cfg["steps"] + 1))
+    state = np.zeros((cfg["layers"], cfg["batch"], cfg["hidden"]),
+                     np.float32)
+    feed = {"x": ids[:, :-1].astype(np.int64),
+            "y": ids[:, 1:].astype(np.int64), "init_h": state,
+            "init_c": state.copy()}
+    if device is not None:
+        feed = {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+    return feed
+
+
+def ptb_lstm_weights(main, cfg, values):
+    """The cudnn_lstm route's WeightList values, by name, from the
+    StaticRNN route's lstm_w{k} / lstm_b{k}: Wx = W[:in], Wh = W[in:],
+    B = b."""
+    op = next(o for o in main.global_block().ops if o.type == "cudnn_lstm")
+    names = op.inputs["WeightList"]
+    h = cfg["hidden"]
+    out = {}
+    for k in range(cfg["layers"]):
+        w = values[f"lstm_w{k}"]
+        out[names[3 * k]] = w[:w.shape[0] - h]
+        out[names[3 * k + 1]] = w[w.shape[0] - h:]
+        out[names[3 * k + 2]] = values[f"lstm_b{k}"]
+    return out
+
+
+def ptb_param_names(main):
+    """The model's parameters of a PTB program (the learning rate
+    aside), in the program's order."""
+    return [n for n, v in main.global_block().vars.items()
+            if v.persistable and not n.startswith("learning_rate")]
+
+
+def ptb_train(api, exe, scope, program, start, feeds, fetch=()):
+    """SGD steps of a PTB program (main, startup, loss) from ``start``
+    (values by name), one a feed: the losses, the extra fetches of each
+    step and the parameters after the last, as numpy."""
+    main, startup, loss = program
+    losses, extra = [], []
+    with api.pt.scope_guard(scope):
+        exe.run(startup, feed={}, fetch_list=[], scope=scope)
+        for n, v in start.items():
+            scope.var(n).set(api.pt.TpuTensor(v))
+        for feed in feeds:
+            out = exe.run(main, feed=feed, fetch_list=[loss, *fetch],
+                          scope=scope)
+            losses.append(float(np.asarray(out[0]).ravel()[0]))
+            extra.append([np.asarray(v) for v in out[1:]])
+        params = {n: scope.find_var(n).get().numpy() for n in start}
+    return losses, extra, params
+
+
+def ptb_decode(api, exe, scope, main, tokens, logits, values):
+    """Run a ptb_decode_program on parameter ``values``: (tokens [n],
+    logits [n, vocab]) as numpy."""
+    with api.pt.scope_guard(scope):
+        for n, v in values.items():
+            scope.var(n).set(api.pt.TpuTensor(v))
+        toks, logs = exe.run(main, fetch_list=[tokens, logits], scope=scope)
+    return np.asarray(toks).reshape(-1), np.asarray(logs).reshape(
+        np.asarray(toks).size, -1)
+
+
+def ptb_decode_program(api, cfg, gen_len, prompt):
+    """Greedy generation through While and a tensor array: the loop
+    carries step, token, each layer's h and c, the token array and the
+    logits array; a step embeds the token, runs the cells, projects,
+    takes the argmax, writes it (array_write), reads it back as the next
+    token (array_read). tensor_array_to_tensor stacks the tokens and the
+    logits. Reads the training program's parameters by name. Returns
+    (main, tokens, logits)."""
+    st = api.static
+    nn = st.nn
+    h, layers = cfg["hidden"], cfg["layers"]
+    main, startup = st.Program(), st.Program()
+    with st.program_guard(main, startup):
+        emb = st.create_parameter([cfg["vocab"], h], "float32",
+                                  name="embedding_para")
+        ws, bs = _ptb_lstm_params(api, cfg)
+        sw, sb = _ptb_softmax_params(api, cfg)
+        step = st.fill_constant([1], "int64", 0)
+        limit = st.fill_constant([1], "int64", gen_len)
+        tok = st.fill_constant([1], "int64", prompt)
+        hs = [st.fill_constant([1, h], "float32", 0.0) for _ in range(layers)]
+        cs = [st.fill_constant([1, h], "float32", 0.0) for _ in range(layers)]
+        toks = nn.array_write(tok, step, max_size=gen_len)
+        logit0 = st.fill_constant([1, cfg["vocab"]], "float32", 0.0)
+        logs = nn.array_write(logit0, step, max_size=gen_len)
+        c = st.less_than(step, limit)
+        loop = st.While(c)
+        with loop.block():
+            inp = nn.embedding_lookup(emb, tok)
+            for k in range(layers):
+                hk, ck = _lstm_cell(nn, inp, hs[k], cs[k], ws[k], bs[k])
+                st.assign(hk, hs[k])
+                st.assign(ck, cs[k])
+                inp = hk
+            logits = nn.elementwise_add(nn.matmul(inp, sw), sb)
+            nn.array_write(nn.argmax(logits, axis=-1), step, array=toks)
+            nn.array_write(logits, step, array=logs)
+            st.assign(nn.array_read(toks, step), tok)
+            st.increment(step)
+            st.less_than(step, limit, out=c)
+        tokens, _ = nn.tensor_array_to_tensor(toks, axis=0, use_stack=True)
+        all_logits, _ = nn.tensor_array_to_tensor(logs, axis=0,
+                                                  use_stack=True)
+    return main, tokens, all_logits
+
+
+# the cases of data-dependent output shape or a host-read predicate
+# whose host syncs phase cf_api prints (by case id)
+CF_SYNC_CASES = (
+    "while_loop_bounded", "while_loop_unbounded", "while_lowered",
+    "conditional_block_True", "conditional_block_False",
+    "conditional_block_infer_True", "switch_0", "switch_-3",
+    "static_rnn", "split_lod_tensor", "merge_lod_tensor",
+    "merge_lod_tensor_infer", "sequence_expand_as",
+    "sequence_expand_as_max_len", "filter_by_instag", "tdm_sampler",
+    "assert_true", "tree_conv", "cudnn_lstm", "cudnn_lstm_seq_len",
+    "shuffle_batch", "sample_logits", "py_func", "save", "load",
+    "run_program", "roi_pool", "write_to_array_past_end",
+    "read_from_array_negative", "select_input_-1", "array_length")
+
+
+def phase_cf_api(dev):
+    """The 97 op types of the control-flow slice (control_flow_ops,
+    array_ops, parity_ops, misc_ops, special_ops): every case of
+    cf_cases on the card against the port on the CPU at each case's
+    bound, forward and gradient (the control-flow ops on their published
+    Program; shuffle_batch's and sample_logits' draws, made on the CPU,
+    equal); the error cases raise on the card too; then the host syncs
+    of one call of the cases whose output shape depends on the data or
+    that read a predicate or an index on the host."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.testing.cf_cases import CF_CASES
+    worst = {}
+    held = [c for c in CF_CASES if c.kind in ("value", "shape", "draws")]
+    types_seen = hold_cases(held, dev, worst)
+    for case in CF_CASES:
+        if case.kind == "error":
+            ins = {s: [torch.from_numpy(np.array(v)).to(dev) for v in vs]
+                   for s, vs in case.inputs.items()}
+            try:
+                with case_env(case, dev) as attrs:
+                    OpInfoMap.instance().get(case.op).compute(ins, attrs)
+                raised = ""
+            except Exception as e:          # the op's own error
+                raised = str(e)
+            check(re.search(case.check, raised),
+                  f"{case.id}: did not raise {case.check!r} on the card")
+        elif case.kind == "random":
+            out = _op_case_run(case, dev)
+            check(all(case.check(v.numpy()) for vs in out.values()
+                      for v in vs), f"{case.id}: draws out of range")
+        types_seen.add(case.op)
+    syncs = {}
+    for cid in CF_SYNC_CASES:
+        case = next(c for c in CF_CASES if c.id == cid)
+        ins = {s: [torch.from_numpy(np.array(v)).to(dev) for v in vs]
+               for s, vs in case.inputs.items()}
+        with case_env(case, dev) as attrs:
+            compute = OpInfoMap.instance().get(case.op).compute
+            compute(ins, dict(attrs))
+            syncs[cid] = profile_call(
+                lambda: compute(ins, dict(attrs)))["syncs"]
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[cf_api] {len(CF_CASES)} cases of {len(types_seen)} op types on "
+          f"the card against the CPU: all agree; largest float errors "
+          + ", ".join(f"{k} {v:.2e}" for k, v in top)
+          + "; host syncs of one call on inputs already on the card: "
+          + ", ".join(f"{k} {n}" for k, n in syncs.items()))
+    check(len(types_seen) == 97, f"{len(types_seen)} op types checked")
+
+
+CF_CARD_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def phase_control_flow(tpt, dev):
+    """tests/test_control_flow.py's programs (CF_PROGRAMS: while_loop
+    nested and bounded with a gradient, While in block form, cond with a
+    gradient, case, switch_case with negative and large indices,
+    StaticRNN with a gradient, the greedy decode, DynamicRNN on the
+    dense path, a While over a tensor array) on the card against the
+    port on the CPU from the same parameters (rtol 1e-5 / atol 1e-6,
+    integers equal), each with the host syncs of its main run."""
+    api = port_static_api()
+    rows = []
+    for name, builder in CF_PROGRAMS.items():
+        built = builder(api)
+        cpu_scope = api.pt.Scope()
+        want = run_cf(api, built, api.pt.Executor("cpu"), cpu_scope)
+        start = {n: cpu_scope.find_var(n).get().numpy()
+                 for n, v in built["main"].global_block().vars.items()
+                 if v.persistable and cpu_scope.find_var(n) is not None}
+        exe, scope = api.pt.Executor(dev), api.pt.Scope()
+        got = run_cf(api, built, exe, scope, start)
+        check(len(got) == len(want), f"{name}: fetches")
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"{name}: {g.shape} {g.dtype} on the card, {w.shape} "
+                  f"{w.dtype} on the CPU")
+            ok = np.allclose(g, w, equal_nan=True, **CF_CARD_TOL) \
+                if np.issubdtype(w.dtype, np.floating) \
+                else np.array_equal(g, w)
+            check(ok, f"{name}: the card disagrees with the CPU")
+        with api.pt.scope_guard(scope):
+            prof = profile_call(lambda: exe.run(
+                built["main"], feed=built["feed"],
+                fetch_list=built["fetch"], scope=scope,
+                return_numpy=False))
+        rows.append(f"{name} {prof['syncs']}")
+    print(f"[control_flow] {len(CF_PROGRAMS)} programs on the card against "
+          f"the CPU: all agree; host syncs of a run: " + ", ".join(rows))
+
+
+PTB_LOSS_RTOL = 1e-5        # card against CPU, first step, dropout 0
+PTB_UPDATE_TOL = 1e-3       # each parameter, of its update's norm
+PTB_ROUTE_LOSS_RTOL = 1e-4  # cudnn_lstm against StaticRNN on the card
+PTB_ROUTE_GRAD_TOL = 1e-3   # each gradient, of its norm
+PTB_GEN = dict(tokens=35, prompt=42)
+
+
+def _ptb_route_start(cprog, cfg, start):
+    out = {n: v for n, v in start.items() if not n.startswith("lstm_")}
+    out.update(ptb_lstm_weights(cprog[0], cfg, start))
+    return out
+
+
+def _ptb_time(api, dev, program, start, feeds, warmup=2, steps=5):
+    """Timed SGD steps of a PTB program on the card (device feeds, the
+    loss fetched as a device tensor), then one profiled step."""
+    main, startup, loss = program
+    exe, scope = api.pt.Executor(dev), api.pt.Scope()
+    with api.pt.scope_guard(scope):
+        exe.run(startup, feed={}, fetch_list=[], scope=scope)
+        for n, v in start.items():
+            scope.var(n).set(api.pt.TpuTensor(torch.from_numpy(v).to(dev)))
+        losses = []
+        it = iter(range(10 ** 6))
+
+        def step():
+            out = exe.run(main, feed=feeds[next(it) % len(feeds)],
+                          fetch_list=[loss], scope=scope, return_numpy=False)
+            losses.append(out[0].value)
+
+        times = _timed_steps(step, warmup, steps)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_call(step)
+    check(all(math.isfinite(float(v)) for v in losses), "a loss is not finite")
+    return times, peak, prof, [float(v) for v in losses]
+
+
+def phase_ptb_lm(tpt, dev):
+    """The main path of this slice: the PTB-large LSTM language model
+    (PTB_LARGE, 66,022,000 parameters, fp32, TF32 off) written as a
+    fluid script (ptb_lm_program): StaticRNN over 35 steps of 2 LSTM
+    layers, trained by SGD(1.0) through append_backward and Executor;
+    the same model through static.nn.lstm (cudnn_lstm); greedy
+    generation through While and tensor arrays (ptb_decode_program).
+    Card against CPU: the first step from the same weights at dropout 0
+    (loss within 1e-5 relative, each update within 1e-3 of its norm).
+    Route against route on the card, dropout 0: cudnn_lstm's loss within
+    1e-4 relative of StaticRNN's, each LSTM gradient within 1e-3 of its
+    norm. Each route for 2 warm-up and 5 timed steps at dropout 0.65:
+    step_ms, tokens/s, peak memory, and one profiled step's launches,
+    host syncs, device busy and idle share. Generation: 35 greedy tokens
+    from prompt id 42 with the weights after the first step, the same on
+    the card as on the CPU (a mismatch prints the logit gap at the first
+    token that differs), ms and host syncs a token."""
+    api = port_static_api()
+    cfg = PTB_LARGE
+    n_params = ptb_param_count(cfg)
+    tokens = cfg["batch"] * cfg["steps"]
+    prog0 = ptb_lm_program(api, cfg, dropout=0.0)
+    names = ptb_param_names(prog0[0])
+    cpu_exe, cpu_scope = api.pt.Executor("cpu"), api.pt.Scope()
+    with api.pt.scope_guard(cpu_scope):
+        cpu_exe.run(prog0[1], feed={}, fetch_list=[], scope=cpu_scope)
+    start = {n: cpu_scope.find_var(n).get().numpy() for n in names}
+    check(sum(v.size for v in start.values()) == n_params,
+          f"the program's parameters are not the {n_params:,} of the model")
+    feed0 = ptb_feeds(cfg, 0)
+    t0 = time.perf_counter()
+    cl, _, cp = ptb_train(api, cpu_exe, api.pt.Scope(), prog0, start,
+                          [feed0])
+    cpu_s = time.perf_counter() - t0
+    gl, _, gp = ptb_train(api, api.pt.Executor(dev), api.pt.Scope(), prog0,
+                          start, [ptb_feeds(cfg, 0, dev)])
+    loss_err = abs(gl[0] - cl[0]) / abs(cl[0])
+    errs = update_errors(gp, cp, start)
+    worst = max(errs, key=errs.get)
+    print(f"[ptb_lm] PTB-large ({n_params:,} parameters), first step at "
+          f"dropout 0: loss card {gl[0]!r} cpu {cl[0]!r} (ln "
+          f"{cfg['vocab']} = {math.log(cfg['vocab']):.4f}), rel err "
+          f"{loss_err:.3e} (bound "
+          f"{PTB_LOSS_RTOL:g}); worst update error {errs[worst]:.3e} "
+          f"({worst}, bound {PTB_UPDATE_TOL:g}); the CPU step took "
+          f"{cpu_s:.2f} s")
+    check(loss_err <= PTB_LOSS_RTOL, "card loss disagrees with the CPU")
+    check(errs[worst] <= PTB_UPDATE_TOL, "card update disagrees with the CPU")
+
+    # route against route on the card, dropout 0
+    sgrads = [f"lstm_w{k}@GRAD" for k in range(cfg["layers"])] + \
+        [f"lstm_b{k}@GRAD" for k in range(cfg["layers"])]
+    cprog0 = ptb_lm_program(api, cfg, dropout=0.0, route="cudnn_lstm")
+    weights = next(o for o in cprog0[0].global_block().ops
+                   if o.type == "cudnn_lstm").inputs["WeightList"]
+    feed_dev = ptb_feeds(cfg, 0, dev)
+    sl, sg, _ = ptb_train(api, api.pt.Executor(dev), api.pt.Scope(), prog0,
+                          start, [feed_dev], sgrads)
+    rl, rg, _ = ptb_train(api, api.pt.Executor(dev), api.pt.Scope(), cprog0,
+                          _ptb_route_start(cprog0, cfg, start), [feed_dev],
+                          [n + "@GRAD" for n in weights])
+    route_loss = abs(rl[0] - sl[0]) / abs(sl[0])
+    gerrs = []
+    for k in range(cfg["layers"]):
+        w = np.concatenate([rg[0][3 * k], rg[0][3 * k + 1]], 0)
+        for got, want in ((w, sg[0][k]), (rg[0][3 * k + 2],
+                                          sg[0][cfg["layers"] + k])):
+            gerrs.append(float(np.linalg.norm(got - want) /
+                               np.linalg.norm(want)))
+    print(f"[ptb_lm] cudnn_lstm route against the StaticRNN route on the "
+          f"card, dropout 0: loss {rl[0]!r} vs {sl[0]!r}, rel err "
+          f"{route_loss:.3e} (bound {PTB_ROUTE_LOSS_RTOL:g}); LSTM gradient "
+          f"errors (of their norms) " + ", ".join(f"{e:.2e}" for e in gerrs)
+          + f" (bound {PTB_ROUTE_GRAD_TOL:g})")
+    check(route_loss <= PTB_ROUTE_LOSS_RTOL, "cudnn_lstm loss disagrees")
+    check(max(gerrs) <= PTB_ROUTE_GRAD_TOL, "cudnn_lstm gradients disagree")
+
+    # timing at dropout 0.65
+    feeds = [ptb_feeds(cfg, s, dev) for s in range(2)]
+    med = {}
+    for route in ("static_rnn", "cudnn_lstm"):
+        prog = ptb_lm_program(api, cfg, dropout=cfg["dropout"], route=route)
+        st = start if route == "static_rnn" else \
+            _ptb_route_start(prog, cfg, start)
+        torch.cuda.empty_cache()
+        times, peak, prof, losses = _ptb_time(api, dev, prog, st, feeds)
+        med[route] = sorted(times)[len(times) // 2]
+        print(f"[ptb_lm] {route} route, dropout {cfg['dropout']}: step_ms "
+              f"median {med[route]:.3f} range {min(times):.3f}-"
+              f"{max(times):.3f} over {len(times)} steps (2 warm-up), "
+              f"tokens/s {tokens / med[route] * 1e3:.1f}, peak memory "
+              f"{peak:.2f} GiB, losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"one profiled step {prof['wall_ms']:.3f} ms: launches "
+              f"{prof['launches']}, host syncs {prof['syncs']}, device busy "
+              f"{prof['busy_ms']:.3f} ms, idle share "
+              f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}; top kernels "
+              + ", ".join(f"{k[:50]} {v:.3f}" for k, v in prof["top_kernels"])
+              + f"; {card_line()}")
+    print(f"[ptb_lm] StaticRNN step over cudnn_lstm step: "
+          f"{med['static_rnn'] / med['cudnn_lstm']:.2f}x")
+
+    # greedy generation with the weights after the first (CPU) step
+    gen = PTB_GEN
+    dec = ptb_decode_program(api, cfg, gen["tokens"], gen["prompt"])
+    ctok, clog = ptb_decode(api, api.pt.Executor("cpu"), api.pt.Scope(),
+                            *dec, cp)
+    exe, scope = api.pt.Executor(dev), api.pt.Scope()
+    gtok, glog = ptb_decode(api, exe, scope, *dec, cp)
+    differ = np.flatnonzero(gtok != ctok)
+    if differ.size:
+        i = int(differ[0])
+        top = np.sort(clog[i])[-2:]
+        print(f"[ptb_lm] generation differs at token {i}: card "
+              f"{gtok[i]} cpu {ctok[i]}; logit gap between the CPU's top "
+              f"two {top[1] - top[0]:.3e}, card-CPU logit error there "
+              f"{np.abs(glog[i] - clog[i]).max():.3e}")
+    check(not differ.size, "generated tokens differ between card and CPU")
+    with api.pt.scope_guard(scope):
+        def generate():
+            exe.run(dec[0], fetch_list=[dec[1]], scope=scope,
+                    return_numpy=False)
+        generate()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            generate()
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3 / 3
+        prof = profile_call(generate)
+    gaps = np.sort(clog, -1)
+    print(f"[ptb_lm] greedy generation of {gen['tokens']} tokens from "
+          f"prompt {gen['prompt']}: card equals CPU ({len(set(gtok))} "
+          f"distinct, first {gtok[:8].tolist()}), smallest top-two logit "
+          f"gap {np.min(gaps[:, -1] - gaps[:, -2]):.3e}; "
+          f"{gen_ms / gen['tokens']:.3f} ms a token, host syncs a token "
+          f"{prof['syncs'] / gen['tokens']:.2f}, launches a token "
+          f"{prof['launches'] / gen['tokens']:.1f}")
+    return med
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4322,6 +5269,9 @@ def main():
     phase_nn_api(dev)
     phase_nn_layers(tpt, dev)
     phase_cyclegan(tpt, dev)
+    phase_cf_api(dev)
+    phase_control_flow(tpt, dev)
+    phase_ptb_lm(tpt, dev)
     # fp32 rows: launches on the O1 path (phase bert), beside those of the
     # eager path (phase eager_bert); bf16 rows: on the O2 path (phase
     # bert_o2); fp16 rows: in the fp16 eager loop of phase tiny_o2 (no

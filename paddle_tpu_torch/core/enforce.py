@@ -109,3 +109,16 @@ def enforce_not_none(v, message: str):
     if v is None:
         raise NotFoundError(message)
     return v
+
+
+def host_only(x, op_name: str):
+    """The value of a tensor that an op reads on the host (one
+    device-to-host copy on the card), as a numpy array: the JAX
+    package's guard for host-side, data-dependent ops. A ``meta`` tensor
+    (static shape inference) has no value: the op is eager only, and its
+    outputs' shapes stay unknown, as under the JAX package's jit."""
+    if x.device.type == "meta":
+        raise InvalidArgumentError(
+            f"{op_name}: host-side / data-dependent op — eager only "
+            "(its output shapes depend on the data)")
+    return x.detach().cpu().numpy()

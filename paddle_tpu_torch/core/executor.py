@@ -37,16 +37,25 @@ last op that touches it, unless it is fetched or goes back to the scope
 (the reference's eager deletion, executor.cc's garbage collector).
 Persistables the block writes go back to the scope only after the whole
 block has run, so a failed run leaves the scope as it was.
+
+Control-flow ops (``ops/control_flow_ops.py``) interpret their
+sub-blocks op by op through :func:`run_op_desc`, finding them in the
+program :func:`current_program` publishes for the run. A control-flow op
+is one forward op to the grad route: recorded, its graph runs through
+every op of every iteration it ran, and its grad op takes the gradients
+of its ``Captured`` inputs (the weights a body reads) from it.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from . import flags, rng
+from . import flags, lodctx, rng
 from .dtype import from_host, host_array
 from .enforce import (EnforceNotMet, NotFoundError, PreconditionNotMetError,
                       UnimplementedError, enforce, op_scope)
@@ -56,6 +65,68 @@ from .scope import Scope, global_scope
 from .tensor import TpuTensor
 
 _SKIP_OPS = frozenset({"feed", "fetch"})
+
+# the op types whose JAX kernels read their inputs on the host on every
+# call: a block holding one runs the JAX executor's eager interpreter,
+# where the LoD side channel (core/lodctx.py) is active
+REFERENCE_EAGER_OPS = frozenset({
+    "split_lod_tensor", "merge_lod_tensor", "merge_lod_tensor_infer",
+    "assert", "tdm_sampler", "filter_by_instag", "py_func", "save",
+    "save_combine", "run_program", "tree_conv"})
+
+# attrs naming a control-flow op's sub-blocks
+_BLOCK_ATTRS = ("cond_block", "body_block", "true_block", "false_block",
+                "sub_block")
+
+# ---- program context: control-flow ops resolve their sub-blocks through
+# the Program being run (the reference's ExecutorPrepareContext carrying
+# the ProgramDesc into nested block execution, executor.cc:376) ----
+_prog_tls = threading.local()
+
+
+def current_program():
+    return getattr(_prog_tls, "program", None)
+
+
+@contextlib.contextmanager
+def program_ctx(program):
+    prev = getattr(_prog_tls, "program", None)
+    _prog_tls.program = program
+    try:
+        yield
+    finally:
+        _prog_tls.program = prev
+
+
+def sub_blocks(program, op: OpDesc) -> list:
+    """The sub-blocks a control-flow op interprets."""
+    idx = [op.attrs[a] for a in _BLOCK_ATTRS if op.attrs.get(a) is not None]
+    idx += list(op.attrs.get("blocks") or [])
+    return [program.blocks[int(i)] for i in idx]
+
+
+def random_draws(program, block: Block) -> int:
+    """The random ops a run of ``block`` draws for, once each: sub-blocks
+    count once, as a body traced once under ``lax.scan`` draws in the JAX
+    package."""
+    n = 0
+    for op in block.ops:
+        if op.type in rng.RANDOM_OPS:
+            n += 1
+        elif program is not None:
+            n += sum(random_draws(program, b) for b in sub_blocks(program, op))
+    return n
+
+
+def _reference_eager(program, block: Block) -> bool:
+    """Whether the JAX executor would interpret ``block`` eagerly for its
+    ops: a host-side op anywhere in it, sub-blocks included."""
+    for op in block.ops:
+        if op.type in REFERENCE_EAGER_OPS:
+            return True
+        if any(_reference_eager(program, b) for b in sub_blocks(program, op)):
+            return True
+    return False
 
 
 def _name_of(fetch) -> str:
@@ -84,8 +155,10 @@ def run_op_desc(op: OpDesc, env: Dict[str, torch.Tensor]):
     """Run one OpDesc against an env of tensors (the analogue of
     OperatorWithKernel::RunImpl, ref: operator.cc:1017): gather inputs,
     run the registered compute (or the generic gradient of a ``*_grad``
-    op, by recompute), write the outputs."""
-    Executor._run_op(op, env, None, None, None)
+    op, by recompute), write the outputs. The op is the LoD side
+    channel's current op while it runs."""
+    with op_scope(op.type), lodctx.op_scope(op):
+        Executor._run_op(op, env, None, None, None)
 
 
 def _custom_grad(fwd_type: str) -> bool:
@@ -173,9 +246,11 @@ def _pair_grad_ops(block: Block) -> Dict[int, int]:
 
 class _Analysis:
     __slots__ = ("fetch_only", "const_names", "mut_names", "writeback",
-                 "pairs", "recorded", "live", "dead_after", "salts")
+                 "pairs", "recorded", "live", "dead_after", "salts",
+                 "eager")
 
-    def __init__(self, block: Block, feed_names, fetch_names, record: bool):
+    def __init__(self, program, block: Block, feed_names, fetch_names,
+                 record: bool):
         external, written = _analyze_block(block, feed_names)
         ext_set, written_set = set(external), set(written)
         # fetch targets the block never touches (e.g. reading a param
@@ -193,11 +268,21 @@ class _Analysis:
                        if block.has_var(n) and block.var(n).persistable]
         self.writeback = sorted(set(self.mut_names) | set(out_persist))
         self.pairs = _pair_grad_ops(block)
-        # {random op index: random ops before it in the block}, counted
-        # over every op, run or not: the op's RNG salt
-        rand = [i for i, op in enumerate(block.ops)
-                if op.type in rng.RANDOM_OPS]
-        self.salts = {i: k for k, i in enumerate(rand)}
+        # {index of an op that draws: draws before it in the block},
+        # counted over every op, run or not, a control-flow op drawing
+        # for the random ops of its sub-blocks: the op's RNG salt. A
+        # paired grad op takes its forward's, so a forward run again for
+        # its gradient draws the masks it drew
+        self.salts, base = {}, 0
+        for i, op in enumerate(block.ops):
+            n = 1 if op.type in rng.RANDOM_OPS else sum(
+                random_draws(program, b) for b in sub_blocks(program, op))
+            if n:
+                self.salts[i] = base
+            base += n
+        self.salts.update({j: self.salts[i] for j, i in self.pairs.items()
+                           if i in self.salts})
+        self.eager = _reference_eager(program, block)
         self.recorded = frozenset(self.pairs.values())
         # the ops to run: those whose outputs a later op reads or the run
         # keeps (fetches, writebacks), a recorded forward whose grad op
@@ -331,13 +416,20 @@ class Executor:
         self._step += 1
         check = flags.get_flag("check_nan_inf")
         records = None if self._force_recompute else {}
-        with torch.no_grad(), rng.step_scope(self._step), op_device(dev):
+        # the LoD side channel is active where the JAX executor would
+        # interpret the block eagerly (its debug modes, or a host-side
+        # op in the block): tensor arrays then take their list form
+        eager = an.eager or check or not use_program_cache or \
+            not flags.get_flag("executor_cache_programs")
+        with torch.no_grad(), rng.step_scope(self._step), op_device(dev), \
+                program_ctx(program), (lodctx.lod_scope() if eager
+                                       else contextlib.nullcontext()):
             for idx, op in enumerate(block.ops):
                 if idx not in an.live:
                     continue
                 if idx in an.salts:
                     rng.set_op_salt(an.salts[idx])
-                with op_scope(op.type):
+                with op_scope(op.type), lodctx.op_scope(op):
                     self._run_op(op, env, idx, records, an)
                 if check:
                     self._check_finite(op, env)
@@ -366,7 +458,8 @@ class Executor:
         an = self._cache.get(key) if cached else None
         if an is None:
             self.stats["analysis_cache_miss"] += 1
-            an = _Analysis(block, set(feed_vals), fetch_names, record)
+            an = _Analysis(program, block, set(feed_vals), fetch_names,
+                           record)
             if cached:
                 self._cache[key] = an
         else:
@@ -424,7 +517,8 @@ class Executor:
         CheckOpHasNanOrInf): one host sync an output."""
         for name in op.output_names():
             val = env.get(name)
-            if val is not None and val.is_floating_point() and \
-                    not bool(torch.isfinite(val).all()):
+            # a tensor array's list form holds no tensor of its own
+            if isinstance(val, torch.Tensor) and val.is_floating_point() \
+                    and not bool(torch.isfinite(val).all()):
                 raise EnforceNotMet(
                     f"Operator {op.type} output {name!r} contains Inf/Nan")

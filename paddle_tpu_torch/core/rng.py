@@ -75,6 +75,14 @@ def set_op_salt(salt: int):
     _tls.salt = int(salt)
 
 
+def op_salt() -> int:
+    """The salt :func:`set_op_salt` last set, as advanced by the draws
+    since: a loop body that the JAX package traces once reads it before
+    its first iteration and sets it back before each later one, so every
+    iteration draws what the first drew."""
+    return getattr(_tls, "salt", 0)
+
+
 def random_generator(seed: int, device="cpu") -> torch.Generator:
     """The generator a random op draws from, on ``device``: inside an
     executor run, seeded from (``seed`` or the global seed, step, op

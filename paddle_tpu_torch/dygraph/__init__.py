@@ -11,7 +11,7 @@ from .tracer import (amp_level, amp_state, no_grad, set_amp_level,  # noqa: F401
                      trace_op)
 from .varbase import Parameter, to_variable  # noqa: F401
 from .compat1x import (  # noqa: F401
-    NCE, BilinearTensorProduct, ParallelEnv, SaveLoadConfig, TranslatedLayer, disable_dygraph,
+    NCE, BilinearTensorProduct, ParallelEnv, SaveLoadConfig, TranslatedLayer, TreeConv, disable_dygraph,
     enable_dygraph, enabled, load, load_dygraph, no_grad_, prepare_context,
     save, save_dygraph, set_code_level, set_verbosity, start_gperf_profiler,
     stop_gperf_profiler)

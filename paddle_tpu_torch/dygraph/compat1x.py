@@ -4,7 +4,7 @@ Port of ``paddle_tpu/dygraph/compat1x.py:16-248`` and ``:277-308``:
 mode control, the single-process parallel environment, state-dict and
 layer persistence, ``TranslatedLayer`` over the inference-model IO, the
 dy2static and profiler switches, and the 1.x layers
-``BilinearTensorProduct`` and ``NCE``. ``GRUUnit``, ``TreeConv`` and
+``BilinearTensorProduct``, ``NCE`` and ``TreeConv``. ``GRUUnit`` and
 ``declarative`` need modules not ported yet: they raise with the
 ROADMAP item that brings them (:data:`DEFERRED`).
 """
@@ -24,7 +24,6 @@ from .tracer import no_grad, trace_op
 # name -> ROADMAP Queue 1 item that ports what it needs
 DEFERRED = {
     "GRUUnit": "4e (the gru_unit op of ops/rnn_ops.py)",
-    "TreeConv": "4d (the tree_conv op of ops/special_ops.py)",
     "TracedLayer": "5 (jit.TracedLayer, jit/dy2static.py)",
     "declarative": "5 (jit.to_static, jit/dy2static.py)",
     "dygraph_to_static_func": "5 (jit.to_static, jit/dy2static.py)",
@@ -270,3 +269,34 @@ class NCE(Layer):
                          "num_neg_samples": self.num_neg_samples,
                          "sampler": self.sampler, "seed": self.seed},
                         out_slots=["Cost"])[0]
+
+
+class TreeConv(Layer):
+    """ref: dygraph/nn.py TreeConv (TBCNN): the tree_conv op over a
+    [feature_size, 3, output_size, num_filters] filter, then a bias and
+    an activation op by name."""
+
+    def __init__(self, feature_size, output_size, num_filters=1,
+                 max_depth=2, act="tanh", param_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        from ..nn import _bias, _init_of
+        self.max_depth = max_depth
+        self._act = act
+        self.weight = self.create_parameter(
+            (feature_size, 3, output_size, num_filters),
+            default_initializer=_init_of(param_attr, None))
+        self.bias = _bias(self, num_filters, bias_attr)
+
+    def forward(self, nodes_vector, edge_set):
+        out = trace_op("tree_conv",
+                       {"NodesVector": [nodes_vector],
+                        "EdgeSet": [edge_set], "Filter": [self.weight]},
+                       {"max_depth": self.max_depth},
+                       out_slots=["Out"])[0]
+        if self.bias is not None:
+            out = out + self.bias
+        if self._act:
+            out = trace_op(self._act, {"X": [out]}, {},
+                           out_slots=["Out"])[0]
+        return out

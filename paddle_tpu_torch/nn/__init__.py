@@ -34,10 +34,19 @@ def _init_of(attr, default):
 
 
 class ParamAttr:
-    """fluid.ParamAttr parity, for the parameter's initializer."""
+    """fluid.ParamAttr parity: a static builder takes the parameter's
+    name and initializer from it (a dygraph layer its initializer); the
+    other fields are recorded."""
 
-    def __init__(self, initializer=None):
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, do_model_average=False,
+                 need_clip=True):
+        self.name = name
         self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.need_clip = need_clip
 
 
 def _bias(layer, n, bias_attr):

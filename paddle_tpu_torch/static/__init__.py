@@ -15,10 +15,13 @@ Shape inference (``_op``) runs each op's compute on ``meta`` tensors
 ``jax.eval_shape``. The first simple-layer table is ported whole: a
 builder whose op the port lacks builds, and running it raises
 ``NotFoundError``, as the JAX package does for an unregistered op. Of
-the later tables, only the builders of ops the port registers. Not
-ported yet: the control-flow builders, ``CompiledProgram``, static
-AMP, ``nets``, the RNN, SSD and module-parity builders and the later
-tables' other builders (ROADMAP Queue 1, item 5).
+the later tables, only the builders of ops the port registers. The
+control-flow builders (``control_flow.py``), the comparison and
+``increment`` builders, the tensor-array surface of the module-parity
+builders and ``lstm`` / ``lstm_unit`` of the RNN builders are ported.
+Not ported yet: ``CompiledProgram``, static AMP, ``nets``, the rest of
+the RNN, SSD and module-parity builders and the later tables' other
+builders (ROADMAP Queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -317,6 +320,57 @@ def _ntuple(v, n):
                 InvalidArgumentError)
         return [int(x) for x in v]
     return [int(v)] * n
+
+
+# fluid/layers/control_flow.py less_than :1012, increment :944 and the
+# other comparisons
+def _cmp_builder(op_type, force_cpu_third: bool = False):
+    """1.x spells the in-place result var ``cond=`` (ref:
+    layers/control_flow.py); the positional order matches the 1.x
+    signatures — less_than alone has force_cpu third. ``out=`` is this
+    repo's internal keyword alias for the same slot; ``force_cpu`` is a
+    placement hint the port ignores (the executor places every op)."""
+    if force_cpu_third:
+        def builder(x: Variable, y: Variable, force_cpu=None,
+                    cond: Optional[Variable] = None, name=None,
+                    out: Optional[Variable] = None) -> Variable:
+            return _cmp_impl(op_type, x, y, out if out is not None
+                             else cond)
+    else:
+        def builder(x: Variable, y: Variable,
+                    cond: Optional[Variable] = None, name=None,
+                    out: Optional[Variable] = None,
+                    force_cpu=None) -> Variable:
+            return _cmp_impl(op_type, x, y, out if out is not None
+                             else cond)
+    builder.__name__ = op_type
+    return builder
+
+
+def _cmp_impl(op_type, x, y, out):
+    if out is None:
+        out = _new_tmp(x.block, op_type)
+    _op(_current_block(), op_type, {"X": [x.name], "Y": [y.name]},
+        {"Out": [out.name]}, {})
+    return out
+
+
+less_than = _cmp_builder("less_than", force_cpu_third=True)
+less_equal = _cmp_builder("less_equal")
+greater_than = _cmp_builder("greater_than")
+greater_equal = _cmp_builder("greater_equal")
+equal = _cmp_builder("equal")
+not_equal = _cmp_builder("not_equal")
+logical_and = _cmp_builder("logical_and")
+logical_or = _cmp_builder("logical_or")
+
+
+def increment(x: Variable, value: float = 1.0,
+              in_place: bool = True) -> Variable:
+    out = x if in_place else _new_tmp(x.block, "increment")
+    _op(_current_block(), "increment", {"X": [x.name]},
+        {"Out": [out.name]}, {"step": float(value)})
+    return out
 
 
 def assign(input: Variable, output: Optional[Variable] = None) -> Variable:
@@ -740,6 +794,10 @@ class StaticOptimizerMixin:
 # Generated builders take the listed Variables positionally, then
 # attr keyword args; extra outputs are returned as a tuple in slot
 # order. Parameterized layers (weights) stay hand-written above/below.
+# ---- control flow (sub-block builders; see control_flow.py) ----
+from .control_flow import (DynamicRNN, StaticRNN, While, case, cond,  # noqa: E402,F401
+                           switch_case, while_loop)
+
 _SIMPLE_LAYERS = {
     # activations (fluid/layers/ops.py autogen family)
     **{name: (name, [("x", "X")], ["Out"], {})
@@ -1226,3 +1284,202 @@ def _linear_chain_crf(input, label, length=None, param_attr=None):
 
 _linear_chain_crf.__name__ = "linear_chain_crf"
 nn.linear_chain_crf = staticmethod(_linear_chain_crf)
+
+
+# The JAX package's _SIMPLE_LAYERS_4 entries over ops the port
+# registers: its layers/tensor.py and layers/control_flow.py groups,
+# and the builders of the parity ops (the rest come with their ops).
+_SIMPLE_LAYERS_4 = {
+    # --- layers/tensor.py
+    "diag": ("diag", [("diagonal", "Diagonal")], ["Out"], {}),
+    "linspace": ("linspace", [("start", "Start"), ("stop", "Stop"),
+                              ("num", "Num")], ["Out"], {}),
+    "sums": ("sum", [("input", "X*")], ["Out"], {}),
+    "triu": ("tril_triu", [("input", "X")], ["Out"],
+             {"diagonal": 0, "lower": False}),
+    "tensor_array_to_tensor": ("tensor_array_to_tensor",
+                               [("input", "X")], ["Out", "OutIndex"],
+                               {"axis": 0, "use_stack": False}),
+    "has_inf": ("isinf", [("x", "X")], ["Out"], {}),
+    "has_nan": ("isnan", [("x", "X")], ["Out"], {}),
+    # --- layers/control_flow.py
+    "array_read": ("read_from_array", [("array", "X"), ("i", "I")],
+                   ["Out"], {}),
+    "array_length": ("array_length", [("array", "X")], ["Out"], {}),
+    "is_empty": ("is_empty", [("x", "X")], ["Out"], {}),
+    "lod_rank_table": ("lod_rank_table", [("x", "X")], ["Out"], {}),
+    "max_sequence_len": ("max_sequence_len",
+                         [("rank_table", "RankTable")], ["Out"], {}),
+    "reorder_lod_tensor_by_rank": (
+        "reorder_lod_tensor_by_rank",
+        [("x", "X"), ("rank_table", "RankTable")], ["Out"], {}),
+    "select_input": ("select_input",
+                     [("inputs", "X*"), ("mask", "Mask")], ["Out"], {}),
+    "shrink_memory": ("shrink_rnn_memory",
+                      [("x", "X"), ("i", "I"), ("table", "Length")],
+                      ["Out"], {}),
+    "lod_tensor_to_array": ("lod_tensor_to_array", [("x", "X")],
+                            ["Out"], {}),
+    "array_to_lod_tensor": ("array_to_lod_tensor", [("x", "X")],
+                            ["Out"], {}),
+    "Print": ("print", [("input", "In")], ["Out"],
+              {"message": "", "first_n": -1}),
+    # --- layers/sequence_lod.py
+    "sequence_enumerate": ("sequence_enumerate", [("input", "X")],
+                           ["Out"], {"win_size": 2, "pad_value": 0}),
+    "sequence_expand_as": ("sequence_expand_as",
+                           [("x", "X"), ("y", "RefLength")], ["Out"],
+                           {"max_len": 0}),
+    # --- layers/detection.py
+    "polygon_box_transform": ("polygon_box_transform",
+                              [("input", "Input")], ["Output"], {}),
+    # --- layers/loss.py
+    "teacher_student_sigmoid_loss": (
+        "teacher_student_sigmoid_loss",
+        [("input", "X"), ("label", "Label")], ["Y"],
+        {"soft_max_up_bound": 15.0, "soft_max_lower_bound": -15.0}),
+}
+for _lname, (_otype, _slots, _osl, _defs) in _SIMPLE_LAYERS_4.items():
+    if not hasattr(nn, _lname):
+        setattr(nn, _lname, _make_simple_layer(_lname, _otype, _slots,
+                                               _osl, _defs))
+
+
+def _control_flow_array_builders():
+    """The JAX package's module-parity builders over this port's ops:
+    the tensor-array surface, the mask routing and the IO ops
+    (``paddle_tpu/static/__init__.py:2173-2234``)."""
+
+    def save(x, file_path, overwrite=True):
+        _op(x.block, "save", {"X": [x.name]}, {},
+            {"file_path": file_path, "overwrite": overwrite})
+
+    def save_combine(x_list, file_path, overwrite=True):
+        _op(x_list[0].block, "save_combine",
+            {"X": [v.name for v in x_list]}, {},
+            {"file_path": file_path, "overwrite": overwrite})
+
+    def load_combine(out, file_path):
+        _op(out[0].block, "load_combine", {},
+            {"Out": [v.name for v in out]}, {"file_path": file_path})
+
+    def create_array(dtype, initialized_list=None):
+        """ref: control_flow.py create_array — a TensorArray handle;
+        the dense buffer is created by the first array_write with a
+        'max_size' attr (static capacity convention)."""
+        block = _current_block()
+        return Variable(block,
+                        default_main_program().unique_name("array"),
+                        dtype=dtype)
+
+    def array_write(x, i, array=None, max_size=64):
+        out = array if array is not None else create_array(x.dtype)
+        ins = {"X": [x.name], "I": [i.name]}
+        attrs = {}
+        if array is not None and array.shape is not None:
+            ins["Array"] = [array.name]
+        else:
+            attrs["max_size"] = int(max_size)
+        _op(x.block, "write_to_array", ins, {"Out": [out.name]}, attrs)
+        return out
+
+    def split_lod_tensor(input, mask, level=0):
+        t = _new_tmp(input.block, "split_true")
+        f = _new_tmp(input.block, "split_false")
+        _op(input.block, "split_lod_tensor",
+            {"X": [input.name], "Mask": [mask.name]},
+            {"OutTrue": [t.name], "OutFalse": [f.name]}, {})
+        return t, f
+
+    def merge_lod_tensor(in_true, in_false, x, mask, level=0):
+        out = _new_tmp(in_true.block, "merge_lod")
+        _op(in_true.block, "merge_lod_tensor",
+            {"InTrue": [in_true.name], "InFalse": [in_false.name],
+             "Mask": [mask.name]}, {"Out": [out.name]}, {})
+        return out
+
+    def select_output(input, outputs, mask):
+        _op(input.block, "select_output",
+            {"X": [input.name], "Mask": [mask.name]},
+            {"Out": [v.name for v in outputs]},
+            {"num_outputs": len(outputs)})
+        return outputs
+
+    def Assert(cond, data=None, summarize=20, name=None):
+        ins = {"Cond": [cond.name]}
+        if data:
+            ins["Data"] = [v.name for v in data]
+        _op(cond.block, "assert", ins, {}, {"summarize": summarize})
+
+    for fn in (save, save_combine, load_combine, create_array,
+               array_write, split_lod_tensor, merge_lod_tensor,
+               select_output, Assert):
+        if not hasattr(nn, fn.__name__):
+            setattr(nn, fn.__name__, staticmethod(fn))
+
+
+_control_flow_array_builders()
+
+
+def _lstm_builders():
+    """``lstm_unit`` and ``lstm`` of the JAX package's RNN builders
+    (``paddle_tpu/static/__init__.py:2694-2741``, ref: layers/rnn.py).
+    ``lstm`` appends ``cudnn_lstm`` with the structured WeightList;
+    ``lstm_unit``'s op waits for ROADMAP Queue 1 item 4e (running it
+    raises NotFoundError, as any unregistered op does)."""
+
+    def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+                  param_attr=None, bias_attr=None, name=None):
+        """ref: layers/rnn.py lstm_unit — fc([x, h]) then one lstm
+        step."""
+        d = int(hidden_t_prev.shape[-1])
+        cat = nn.concat([x_t, hidden_t_prev], axis=1)
+        gates = nn.fc(cat, size=4 * d, param_attr=param_attr,
+                      bias_attr=bias_attr)
+        h = _new_tmp(x_t.block, name or "lstm_unit_h")
+        c = _new_tmp(x_t.block, "lstm_unit_c")
+        _op(x_t.block, "lstm_unit",
+            {"X": [gates.name], "C_prev": [cell_t_prev.name]},
+            {"H": [h.name], "C": [c.name]},
+            {"forget_bias": float(forget_bias)})
+        return h, c
+
+    def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
+             dropout_prob=0.0, is_bidirec=False, is_test=False,
+             name=None, default_initializer=None, seed=-1):
+        """ref: layers/rnn.py lstm (the cuDNN-backed one) — creates the
+        structured WeightList the cudnn_lstm kernel consumes
+        ([Wx, Wh, B] per layer per direction)."""
+        dirs = 2 if is_bidirec else 1
+        din = int(input.shape[-1])
+        weights = []
+        for layer in range(num_layers):
+            layer_in = din if layer == 0 else hidden_size * dirs
+            for _ in range(dirs):
+                weights.append(create_parameter(
+                    [layer_in, 4 * hidden_size], "float32",
+                    default_initializer=default_initializer))
+                weights.append(create_parameter(
+                    [hidden_size, 4 * hidden_size], "float32",
+                    default_initializer=default_initializer))
+                weights.append(create_parameter(
+                    [4 * hidden_size], "float32", is_bias=True))
+        block = input.block
+        out = _new_tmp(block, name or "cudnn_lstm_out")
+        last_h = _new_tmp(block, "cudnn_lstm_h")
+        last_c = _new_tmp(block, "cudnn_lstm_c")
+        _op(block, "cudnn_lstm",
+            {"Input": [input.name], "InitH": [init_h.name],
+             "InitC": [init_c.name],
+             "WeightList": [w.name for w in weights]},
+            {"Out": [out.name], "LastH": [last_h.name],
+             "LastC": [last_c.name]},
+            {"num_layers": num_layers, "is_bidirec": is_bidirec})
+        return out, last_h, last_c
+
+    for fn in (lstm_unit, lstm):
+        if not hasattr(nn, fn.__name__):
+            setattr(nn, fn.__name__, staticmethod(fn))
+
+
+_lstm_builders()

@@ -42,6 +42,12 @@ class Case(NamedTuple):
     tol: Tuple[float, float] = FP32
     grad_tol: Tuple[float, float] = FP32
     check: Optional[Callable] = None
+    # a control-flow op's Program (JSON) whose sub-blocks its attrs name
+    program: Optional[str] = None
+    # setup(ops, tmp): registers what the op looks up (a reader, a py
+    # callable) in a package's ops modules (ops("misc_ops") is the
+    # module) and writes the files it reads into the directory tmp
+    setup: Optional[Callable] = None
 
 
 def _rs(seed):

@@ -9,7 +9,8 @@ its ``chip_smoke.py`` and ``paddle_tpu_torch`` are imported, its kernels
 built into its own ``build/``. PHASE is one of ``bert`` (phase bert, then
 one O1 step under the profiler: launches, host syncs, device busy),
 ``bert_o2``, ``eager_bert``, ``tensor_api``, ``nn_api``, ``nn_layers``,
-``cyclegan`` and ``fp16`` (phase timing at fp16). To compare two commits on one card, run them in turns in one
+``cyclegan``, ``cf_api``, ``control_flow``, ``ptb_lm`` and ``fp16``
+(phase timing at fp16). To compare two commits on one card, run them in turns in one
 call, one process each, e.g. parent, change, change, parent.
 """
 import os
@@ -75,6 +76,12 @@ def main():
             cs.phase_nn_layers(tpt, dev)
         elif ph == "cyclegan":
             cs.phase_cyclegan(tpt, dev)
+        elif ph == "cf_api":
+            cs.phase_cf_api(dev)
+        elif ph == "control_flow":
+            cs.phase_control_flow(tpt, dev)
+        elif ph == "ptb_lm":
+            cs.phase_ptb_lm(tpt, dev)
         elif ph == "fp16":
             cs.phase_timing(fa, dev, torch.float16)
         else:

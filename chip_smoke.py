@@ -2307,10 +2307,10 @@ def port_static_api():
     from paddle_tpu_torch import io, static
     from paddle_tpu_torch.nn import ParamAttr
     from paddle_tpu_torch.nn.initializer import Uniform
-    from paddle_tpu_torch.optimizer import SGD, Momentum
+    from paddle_tpu_torch.optimizer import SGD, Adagrad, Momentum
     return types.SimpleNamespace(pt=pt, static=static, io=io,
                                  ParamAttr=ParamAttr, Uniform=Uniform,
-                                 Momentum=Momentum, SGD=SGD)
+                                 Momentum=Momentum, SGD=SGD, Adagrad=Adagrad)
 
 
 # tests/test_book.py's six programs: (steps, SGD learning rate)
@@ -4626,6 +4626,49 @@ def cf_dynamic_rnn_memory(api):
                 fetch=[out.name], params={})
 
 
+def cf_dynamic_rnn_ragged(api):
+    """tests/test_control_flow.py's ragged DynamicRNN: a running sum
+    over two sequences of lengths 3 and 1 fed as flat rows + a level-1
+    LoD; the short row's state freezes after its length, and
+    sequence_last_step takes each row's last valid step."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.data("drx", [-1, -1, 2], "float32", lod_level=1)
+        rnn = st.DynamicRNN()
+        with rnn.block():
+            w = rnn.step_input(x)
+            prev = rnn.memory(shape=[2], value=0.0)
+            cur = st.nn.elementwise_add(w, prev)
+            rnn.update_memory(prev, cur)
+            rnn.output(cur)
+        out = rnn()
+        last = st.nn.sequence_last_step(out)
+    rows = np.array([[1, 1], [2, 2], [3, 3], [10, 10]], np.float32)
+    return dict(main=main, startup=startup, feed={"drx": (rows, [[0, 3, 4]])},
+                fetch=[out.name, last.name], params={})
+
+
+def cf_dynamic_rnn_memory_ragged(api):
+    """memory(shape=[7], value=1.5) over a LoD feed of one sequence of 2
+    steps: the initial state's width and fill, seen at t=0."""
+    st = api.static
+    main, startup = _cf_new(api)
+    with st.program_guard(main, startup):
+        x = st.data("drx2", [-1, -1, 4], "float32", lod_level=1)
+        rnn = st.DynamicRNN()
+        with rnn.block():
+            w = rnn.step_input(x)
+            prev = rnn.memory(shape=[7], value=1.5)
+            cur = st.nn.elementwise_add(st.nn.fc(w, size=7), prev)
+            rnn.update_memory(prev, cur)
+            rnn.output(prev)
+        out = rnn()
+    return dict(main=main, startup=startup,
+                feed={"drx2": (np.ones((2, 4), np.float32), [[0, 2]])},
+                fetch=[out.name], params={})
+
+
 def cf_array_decode(api, steps=5):
     """While in block form over a dense tensor array: write a value a
     step, read the last back into the carry, stack them all, and the
@@ -4694,20 +4737,30 @@ CF_PROGRAMS = {
     "case_no_default": cf_case_no_default,
     "dynamic_rnn": cf_dynamic_rnn,
     "dynamic_rnn_memory": cf_dynamic_rnn_memory,
+    "dynamic_rnn_ragged": cf_dynamic_rnn_ragged,
+    "dynamic_rnn_memory_ragged": cf_dynamic_rnn_memory_ragged,
     "array_decode": cf_array_decode,
     "cond_nan_untaken": cf_cond_nan_untaken,
 }
+
+
+def cf_feed(api, built):
+    """A CF_PROGRAMS program's feed, a (rows, lod) entry as the
+    package's TpuTensor."""
+    return {k: api.pt.TpuTensor(*v) if isinstance(v, tuple) else v
+            for k, v in built["feed"].items()}
 
 
 def run_cf(api, built, exe, scope, start=None):
     """Run a CF_PROGRAMS program: its startup, then ``start`` (values by
     name; default the builder's params), then the main program once.
     Returns the fetches as numpy arrays."""
+    feed = cf_feed(api, built)
     with api.pt.scope_guard(scope):
         exe.run(built["startup"], feed={}, fetch_list=[], scope=scope)
         for n, v in (built["params"] if start is None else start).items():
             scope.var(n).set(api.pt.TpuTensor(v))
-        out = exe.run(built["main"], feed=built["feed"],
+        out = exe.run(built["main"], feed=feed,
                       fetch_list=built["fetch"], scope=scope)
     return [np.asarray(v) for v in out]
 
@@ -4949,6 +5002,45 @@ CF_SYNC_CASES = (
     "read_from_array_negative", "select_input_-1", "array_length")
 
 
+def raise_cases(cases, dev):
+    """The "error" cases among ``cases`` raise on the card, each the
+    error its ``check`` names. Returns their op types."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    seen = set()
+    for case in cases:
+        if case.kind != "error":
+            continue
+        ins = {s: [torch.from_numpy(np.array(v)).to(dev) for v in vs]
+               for s, vs in case.inputs.items()}
+        try:
+            with case_env(case, dev) as attrs:
+                OpInfoMap.instance().get(case.op).compute(ins, attrs)
+            raised = ""
+        except Exception as e:          # the op's own error
+            raised = str(e)
+        check(re.search(case.check, raised),
+              f"{case.id}: did not raise {case.check!r} on the card")
+        seen.add(case.op)
+    return seen
+
+
+def case_syncs(cases, ids, dev):
+    """{case id: host syncs of one call of its op} for the cases named
+    in ``ids``, on inputs already on the card."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    syncs = {}
+    for cid in ids:
+        case = next(c for c in cases if c.id == cid)
+        ins = {s: [torch.from_numpy(np.array(v)).to(dev) for v in vs]
+               for s, vs in case.inputs.items()}
+        with case_env(case, dev) as attrs:
+            compute = OpInfoMap.instance().get(case.op).compute
+            compute(ins, dict(attrs))
+            syncs[cid] = profile_call(
+                lambda: compute(ins, dict(attrs)))["syncs"]
+    return syncs
+
+
 def phase_cf_api(dev):
     """The 97 op types of the control-flow slice (control_flow_ops,
     array_ops, parity_ops, misc_ops, special_ops): every case of
@@ -4958,38 +5050,18 @@ def phase_cf_api(dev):
     equal); the error cases raise on the card too; then the host syncs
     of one call of the cases whose output shape depends on the data or
     that read a predicate or an index on the host."""
-    from paddle_tpu_torch.core.registry import OpInfoMap
     from paddle_tpu_torch.testing.cf_cases import CF_CASES
     worst = {}
     held = [c for c in CF_CASES if c.kind in ("value", "shape", "draws")]
     types_seen = hold_cases(held, dev, worst)
+    types_seen |= raise_cases(CF_CASES, dev)
     for case in CF_CASES:
-        if case.kind == "error":
-            ins = {s: [torch.from_numpy(np.array(v)).to(dev) for v in vs]
-                   for s, vs in case.inputs.items()}
-            try:
-                with case_env(case, dev) as attrs:
-                    OpInfoMap.instance().get(case.op).compute(ins, attrs)
-                raised = ""
-            except Exception as e:          # the op's own error
-                raised = str(e)
-            check(re.search(case.check, raised),
-                  f"{case.id}: did not raise {case.check!r} on the card")
-        elif case.kind == "random":
+        if case.kind == "random":
             out = _op_case_run(case, dev)
             check(all(case.check(v.numpy()) for vs in out.values()
                       for v in vs), f"{case.id}: draws out of range")
-        types_seen.add(case.op)
-    syncs = {}
-    for cid in CF_SYNC_CASES:
-        case = next(c for c in CF_CASES if c.id == cid)
-        ins = {s: [torch.from_numpy(np.array(v)).to(dev) for v in vs]
-               for s, vs in case.inputs.items()}
-        with case_env(case, dev) as attrs:
-            compute = OpInfoMap.instance().get(case.op).compute
-            compute(ins, dict(attrs))
-            syncs[cid] = profile_call(
-                lambda: compute(ins, dict(attrs)))["syncs"]
+            types_seen.add(case.op)
+    syncs = case_syncs(CF_CASES, CF_SYNC_CASES, dev)
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
     print(f"[cf_api] {len(CF_CASES)} cases of {len(types_seen)} op types on "
           f"the card against the CPU: all agree; largest float errors "
@@ -5007,9 +5079,10 @@ def phase_control_flow(tpt, dev):
     nested and bounded with a gradient, While in block form, cond with a
     gradient, case, switch_case with negative and large indices,
     StaticRNN with a gradient, the greedy decode, DynamicRNN on the
-    dense path, a While over a tensor array) on the card against the
-    port on the CPU from the same parameters (rtol 1e-5 / atol 1e-6,
-    integers equal), each with the host syncs of its main run."""
+    dense path and on LoD feeds, a While over a tensor array) on the
+    card against the port on the CPU from the same parameters (rtol
+    1e-5 / atol 1e-6, integers equal), each with the host syncs of its
+    main run."""
     api = port_static_api()
     rows = []
     for name, builder in CF_PROGRAMS.items():
@@ -5032,7 +5105,7 @@ def phase_control_flow(tpt, dev):
             check(ok, f"{name}: the card disagrees with the CPU")
         with api.pt.scope_guard(scope):
             prof = profile_call(lambda: exe.run(
-                built["main"], feed=built["feed"],
+                built["main"], feed=cf_feed(api, built),
                 fetch_list=built["fetch"], scope=scope,
                 return_numpy=False))
         rows.append(f"{name} {prof['syncs']}")
@@ -5217,6 +5290,473 @@ def phase_ptb_lm(tpt, dev):
     return med
 
 
+# ------------------------------------------- sequences, LoD feeds, RNNs
+# The book's understand_sentiment, stacked_lstm_net (PaddlePaddle/book
+# 06.understand_sentiment): embedding 128, hid_dim 512, stacked_num 3
+# (dynamic_lstm hidden 128, with peepholes), 2 classes, Adagrad at lr
+# 0.002, batch 128. IMDB's text and dictionary are not in the
+# repository: reviews are token ids from a seed, 32-512 tokens long, and
+# the dictionary has 5,149 words (it sets only the embedding's rows).
+SENTIMENT = dict(vocab=5149, emb=128, hid=512, stacked=3, classes=2,
+                 lr=0.002, batch=128, min_len=32, max_len=512)
+
+
+def sentiment_program(api, cfg):
+    """stacked_lstm_net as the book writes it, over a LoD input: fc and
+    dynamic_lstm stacked ``stacked`` deep, each fc reading the fc and
+    the LSTM below it, the LSTMs alternating direction (the even ones
+    reverse each review within its length), sequence_pool MAX of the
+    last fc and LSTM, a softmax fc, cross_entropy, and
+    Adagrad(lr).minimize. Feeds: words (flat rows [N, 1] int64 + a
+    level-1 LoD), label [B, 1] int64. Returns (main, startup, loss)."""
+    st = api.static
+    nn = st.nn
+    hid = cfg["hid"]
+    main, startup = st.Program(), st.Program()
+    with st.program_guard(main, startup):
+        words = st.data("words", [-1, -1, 1], "int64", lod_level=1)
+        label = st.data("label", [-1, 1], "int64")
+        emb = nn.embedding(words, size=[cfg["vocab"], cfg["emb"]],
+                           is_sparse=True)
+        fc1 = nn.fc(emb, size=hid)
+        lstm1, _ = nn.dynamic_lstm(fc1, size=hid)
+        inputs = [fc1, lstm1]
+        for i in range(2, cfg["stacked"] + 1):
+            fc = nn.fc(inputs, size=hid)
+            lstm, _ = nn.dynamic_lstm(fc, size=hid,
+                                      is_reverse=(i % 2) == 0)
+            inputs = [fc, lstm]
+        pooled = [nn.sequence_pool(v, st.companion_length_of(v),
+                                   pooltype="MAX") for v in inputs]
+        pred = nn.fc(pooled, size=cfg["classes"], act="softmax")
+        loss = nn.mean(nn.cross_entropy(pred, label))
+        api.Adagrad(learning_rate=cfg["lr"]).minimize(loss)
+    return main, startup, loss.name
+
+
+def sentiment_batch(cfg, seed):
+    """A batch of ``batch`` reviews from ``seed``: lengths uniform in
+    [min_len, max_len], token ids uniform over the dictionary, labels
+    uniform. Returns (rows [N, 1] int64, level-1 LoD, label [B, 1])."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(cfg["min_len"], cfg["max_len"] + 1, cfg["batch"])
+    rows = rs.randint(0, cfg["vocab"], (int(lens.sum()), 1)).astype(np.int64)
+    lod = [[0] + np.cumsum(lens).tolist()]
+    label = rs.randint(0, cfg["classes"], (cfg["batch"], 1)).astype(np.int64)
+    return rows, lod, label
+
+
+def sentiment_params(main):
+    """The persistables of a sentiment program (parameters and Adagrad's
+    moments), the learning rate aside."""
+    return [n for n, v in main.global_block().vars.items()
+            if v.persistable and not n.startswith("learning_rate")]
+
+
+def sentiment_feed(api, batch, device=None):
+    rows, lod, label = batch
+    if device is not None:
+        rows = torch.from_numpy(rows).to(device)
+        label = torch.from_numpy(label).to(device)
+    return {"words": api.pt.TpuTensor(rows, lod), "label": label}
+
+
+def sentiment_train(api, exe, scope, program, start, batches):
+    """Adagrad steps of a sentiment program from ``start`` (values by
+    name), one a batch of ``sentiment_batch``: (losses, the persistables
+    after the last step), as numpy."""
+    main, startup, loss = program
+    losses = []
+    with api.pt.scope_guard(scope):
+        exe.run(startup, feed={}, fetch_list=[], scope=scope)
+        for n, v in start.items():
+            scope.var(n).set(api.pt.TpuTensor(v))
+        for batch in batches:
+            out = exe.run(main, feed=sentiment_feed(api, batch),
+                          fetch_list=[loss], scope=scope)
+            losses.append(float(np.asarray(out[0]).ravel()[0]))
+        params = {n: np.asarray(scope.find_var(n).get().numpy())
+                  for n in start}
+    return losses, params
+
+
+SEQ_SYNC_CASES = ("sequence_mask", "sequence_mask_from_data",
+                  "sequence_expand_from_data", "segment_pool_from_data",
+                  "rnn_scan_lstm", "lstm_reverse_length")
+
+
+def phase_seq_ops(dev):
+    """The 19 op types of the sequence slice (sequence_ops, rnn_ops):
+    every case of seq_cases on the card against the port on the CPU at
+    each case's bound, forward and gradient (ragged rows of lengths 5, 0
+    and 3; lstm reversed with and without Length; rnn_scan on cuDNN on
+    the card, the plain loop on the CPU); the error cases raise on the
+    card too; the fluid sequence_expand(x, y) form over a LoD and the
+    executor's LoD-feed padding, card against CPU, equal; then the host
+    syncs of one call of the cases that read their data's size."""
+    from paddle_tpu_torch.core import lodctx
+    from paddle_tpu_torch.core.executor import lod_to_padded
+    from paddle_tpu_torch.core.program import OpDesc
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.core.tensor import TpuTensor
+    from paddle_tpu_torch.testing.seq_cases import SEQ_CASES
+    worst = {}
+    types_seen = hold_cases([c for c in SEQ_CASES if c.kind == "value"],
+                            dev, worst)
+    types_seen |= raise_cases(SEQ_CASES, dev)
+    rs = np.random.RandomState(0)
+    rows = rs.randn(9, 3).astype(np.float32)
+    lod = [[0, 4, 4, 9]]                  # an empty row between two
+    x = rs.randn(3, 2).astype(np.float32)
+    got = []
+    for device in (dev, "cpu"):
+        padded, lens = lod_to_padded(TpuTensor(rows, lod, device=device),
+                                     device)
+        op = OpDesc("sequence_expand", {"X": ["x"], "Y": ["y"]},
+                    {"Out": ["o"]}, {"ref_level": -1})
+        with lodctx.lod_scope({"y": [[0, 2, 2, 5]]}), lodctx.op_scope(op):
+            out = OpInfoMap.instance().get("sequence_expand").compute(
+                {"X": [torch.from_numpy(x).to(device)],
+                 "Y": [torch.zeros(5, 1, device=device)]},
+                {"ref_level": -1})["Out"][0]
+        got.append([v.cpu() for v in (padded, lens, out)])
+    check(all(torch.equal(a, b) for a, b in zip(*got)),
+          "LoD padding or sequence_expand(x, y) differs on the card")
+    check(got[1][1].tolist() == [4, 0, 5] and
+          tuple(got[1][0].shape) == (3, 5, 3), "LoD padding")
+    syncs = case_syncs(SEQ_CASES, SEQ_SYNC_CASES, dev)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[seq_ops] {len(SEQ_CASES)} cases of {len(types_seen)} op types "
+          f"on the card against the CPU: all agree; largest float errors "
+          + ", ".join(f"{k} {v:.2e}" for k, v in top)
+          + "; LoD-feed padding and sequence_expand(x, y) equal; host syncs "
+          "of one call on inputs already on the card: "
+          + ", ".join(f"{k} {n}" for k, n in syncs.items()))
+    check(len(types_seen) == 19, f"{len(types_seen)} op types checked")
+
+
+RNNLM_LOSS_RTOL = PTB_LOSS_RTOL      # card against CPU, first step
+RNNLM_UPDATE_TOL = PTB_UPDATE_TOL    # each parameter, of its update's norm
+RNNLM_CLIP = 10.0                    # the global norm the updates clip to
+
+
+def rnnlm_model(nn, cfg, dropout):
+    """PaddleNLP's 2.0 rnnlm (examples/language_model/rnnlm) at ``cfg``
+    (PTB_LARGE): embedding, dropout, nn.LSTM of ``layers`` layers
+    (dropout between them), dropout, the vocabulary projection. Its
+    forward takes ids [B, T] and the (h, c) states and returns the
+    logits [B, T, V] and the new states."""
+
+    class RnnLm(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            v, h = cfg["vocab"], cfg["hidden"]
+            self.embedder = nn.Embedding(v, h)
+            self.lstm = nn.LSTM(h, h, num_layers=cfg["layers"],
+                                dropout=dropout)
+            self.fc = nn.Linear(h, v)
+            self.dropout = nn.Dropout(dropout)
+
+        def forward(self, ids, states):
+            y = self.dropout(self.embedder(ids))
+            y, states = self.lstm(y, states)
+            return self.fc(self.dropout(y)), states
+
+    return RnnLm()
+
+
+def rnnlm_state(cfg, start):
+    """The eager model's state dict from the static PTB program's
+    parameters (``start``): the same weights in nn.LSTM's layout
+    (convert.lstm_state_from_cells)."""
+    from paddle_tpu_torch import convert
+    layers = range(cfg["layers"])
+    state = {"lstm." + k: v for k, v in convert.lstm_state_from_cells(
+        [start[f"lstm_w{k}"] for k in layers],
+        [start[f"lstm_b{k}"] for k in layers]).items()}
+    state.update({"embedder.weight": start["embedding_para"],
+                  "fc.weight": start["softmax_w"],
+                  "fc.bias": start["softmax_b"]})
+    return state
+
+
+def rnnlm_step(paddle, model, opt, feed, states):
+    """One training step of the user script: forward, the mean token
+    cross entropy, backward, the clipped SGD update. Returns (loss,
+    detached states)."""
+    b, t = feed["x"].shape
+    logits, states = model(feed["x"], states)
+    loss = paddle.nn.functional.cross_entropy(
+        logits.reshape([b * t, -1]), feed["y"].reshape([b * t, 1]))
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss, tuple(s.detach() for s in states)
+
+
+def _rnnlm_setup(tpt, device, cfg, dropout, state):
+    from paddle_tpu_torch.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.convert import load_state_dict
+    tpt.set_device(device)
+    model = rnnlm_model(tpt.nn, cfg, dropout)
+    load_state_dict(model, state)
+    opt = tpt.optimizer.SGD(
+        learning_rate=cfg["lr"], parameters=model.parameters(),
+        grad_clip=ClipGradByGlobalNorm(RNNLM_CLIP))
+    return model, opt
+
+
+def _rnnlm_feed(feed, device):
+    return {k: torch.from_numpy(feed[k]).to(device) for k in ("x", "y")}
+
+
+def _rnnlm_states(cfg, device):
+    z = torch.zeros(cfg["layers"], cfg["batch"], cfg["hidden"],
+                    device=device)
+    return (z, z.clone())
+
+
+def phase_rnnlm_eager(tpt, dev):
+    """The eager language model of the sequence slice: PTB-large (PTB_LARGE, 66,022,000
+    parameters, fp32, TF32 off) as PaddleNLP's 2.0 rnnlm writes it
+    (rnnlm_model: paddle.nn.LSTM, eager), SGD(1.0) with the clip of 10
+    on the global norm, from the weights of the static PTB program's
+    startup. Card against CPU: the first step at dropout 0 (loss within
+    1e-5 relative, each update within 1e-3 of its norm). Route against
+    route on the card at dropout 0: the nn.LSTM loss against PTB
+    StaticRNN's and cudnn_lstm's from the same weights (1e-4 relative),
+    and the LSTM gradients before the clip against StaticRNN's (1e-3 of
+    their norms). Then 2 warm-up and 5 timed steps at dropout 0.65,
+    states carried across steps as the script does: step_ms, tokens/s,
+    peak memory, and one profiled step's launches, host syncs and idle
+    share."""
+    api = port_static_api()
+    cfg = PTB_LARGE
+    tokens = cfg["batch"] * cfg["steps"]
+    prog0 = ptb_lm_program(api, cfg, dropout=0.0)
+    cpu_scope = api.pt.Scope()
+    with api.pt.scope_guard(cpu_scope):
+        api.pt.Executor("cpu").run(prog0[1], feed={}, fetch_list=[],
+                                   scope=cpu_scope)
+    start = {n: cpu_scope.find_var(n).get().numpy()
+             for n in ptb_param_names(prog0[0])}
+    state = rnnlm_state(cfg, start)
+    feed0 = ptb_feeds(cfg, 0)
+    results = []
+    for device in ("cpu", dev):
+        model, opt = _rnnlm_setup(tpt, device, cfg, 0.0, state)
+        t0 = time.perf_counter()
+        loss, _ = rnnlm_step(tpt, model, opt, _rnnlm_feed(feed0, device),
+                             _rnnlm_states(cfg, device))
+        results.append((float(loss.detach()), {
+            k: v.detach().cpu().numpy()
+            for k, v in model.state_dict().items()},
+            time.perf_counter() - t0))
+        del model, opt
+    tpt.set_device(dev)
+    (cl, cp, cpu_s), (gl, gp, _) = results
+    loss_err = abs(gl - cl) / abs(cl)
+    errs = update_errors(gp, cp, state)
+    worst = max(errs, key=errs.get)
+    n_params = sum(v.size for k, v in state.items())
+    print(f"[rnnlm_eager] PTB-large through paddle.nn.LSTM ({n_params:,} "
+          f"values, bias_hh included), first step at dropout 0: loss card "
+          f"{gl!r} cpu {cl!r}, rel err {loss_err:.3e} (bound "
+          f"{RNNLM_LOSS_RTOL:g}); worst update error {errs[worst]:.3e} "
+          f"({worst}, bound {RNNLM_UPDATE_TOL:g}); the CPU step took "
+          f"{cpu_s:.2f} s")
+    check(loss_err <= RNNLM_LOSS_RTOL, "card loss disagrees with the CPU")
+    check(errs[worst] <= RNNLM_UPDATE_TOL,
+          "card update disagrees with the CPU")
+
+    # route against route on the card, dropout 0
+    feed_dev = ptb_feeds(cfg, 0, dev)
+    sgrads = [f"lstm_w{k}@GRAD" for k in range(cfg["layers"])] + \
+        [f"lstm_b{k}@GRAD" for k in range(cfg["layers"])]
+    sl, sg, _ = ptb_train(api, api.pt.Executor(dev), api.pt.Scope(), prog0,
+                          start, [feed_dev], sgrads)
+    cprog0 = ptb_lm_program(api, cfg, dropout=0.0, route="cudnn_lstm")
+    rl, _, _ = ptb_train(api, api.pt.Executor(dev), api.pt.Scope(), cprog0,
+                         _ptb_route_start(cprog0, cfg, start), [feed_dev])
+    model, opt = _rnnlm_setup(tpt, dev, cfg, 0.0, state)
+    b, t = cfg["batch"], cfg["steps"]
+    logits, _ = model(feed_dev["x"], _rnnlm_states(cfg, dev))
+    loss = tpt.nn.functional.cross_entropy(
+        logits.reshape([b * t, -1]), feed_dev["y"].reshape([b * t, 1]))
+    loss.backward()
+    el = float(loss.detach())
+    gerrs = []
+    for k in range(cfg["layers"]):
+        lstm = model.lstm
+        w = torch.cat([getattr(lstm, f"weight_ih_l{k}").grad.T,
+                       getattr(lstm, f"weight_hh_l{k}").grad.T], 0)
+        for got, want in (
+                (w.cpu().numpy(), sg[0][k]),
+                (getattr(lstm, f"bias_ih_l{k}").grad.cpu().numpy(),
+                 sg[0][cfg["layers"] + k]),
+                (getattr(lstm, f"bias_hh_l{k}").grad.cpu().numpy(),
+                 sg[0][cfg["layers"] + k])):
+            gerrs.append(float(np.linalg.norm(got - want) /
+                               np.linalg.norm(want)))
+    del model, opt
+    route = {"static_rnn": abs(el - sl[0]) / abs(sl[0]),
+             "cudnn_lstm": abs(el - rl[0]) / abs(rl[0])}
+    print(f"[rnnlm_eager] nn.LSTM route against the static script's routes "
+          f"on the card from the same weights, dropout 0: loss {el!r}, "
+          f"StaticRNN "
+          f"{sl[0]!r} (rel err {route['static_rnn']:.3e}), cudnn_lstm "
+          f"{rl[0]!r} (rel err {route['cudnn_lstm']:.3e}; bound "
+          f"{PTB_ROUTE_LOSS_RTOL:g}); LSTM gradients before the clip "
+          f"against StaticRNN's (W, b_ih, b_hh a layer, of their norms) "
+          + ", ".join(f"{e:.2e}" for e in gerrs)
+          + f" (bound {PTB_ROUTE_GRAD_TOL:g})")
+    check(max(route.values()) <= PTB_ROUTE_LOSS_RTOL,
+          "nn.LSTM loss disagrees with the static routes")
+    check(max(gerrs) <= PTB_ROUTE_GRAD_TOL, "nn.LSTM gradients disagree")
+
+    # timing at dropout 0.65, with the clip
+    torch.cuda.empty_cache()
+    model, opt = _rnnlm_setup(tpt, dev, cfg, cfg["dropout"], state)
+    feeds = [ptb_feeds(cfg, s, dev) for s in range(2)]
+    carry = {"states": _rnnlm_states(cfg, dev), "i": 0}
+    losses = []
+
+    def step():
+        loss, carry["states"] = rnnlm_step(
+            tpt, model, opt, feeds[carry["i"] % 2], carry["states"])
+        carry["i"] += 1
+        losses.append(loss.detach())
+
+    times = _timed_steps(step, 2, 5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_call(step)
+    check(all(math.isfinite(float(v)) for v in losses), "a loss is not finite")
+    med = sorted(times)[len(times) // 2]
+    print(f"[rnnlm_eager] nn.LSTM, dropout {cfg['dropout']}, clip "
+          f"{RNNLM_CLIP:g}: step_ms median {med:.3f} range {min(times):.3f}-"
+          f"{max(times):.3f} over {len(times)} steps (2 warm-up), tokens/s "
+          f"{tokens / med * 1e3:.1f}, peak memory {peak:.2f} GiB, losses "
+          f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f}; one profiled "
+          f"step {prof['wall_ms']:.3f} ms: launches {prof['launches']}, host "
+          f"syncs {prof['syncs']}, device busy {prof['busy_ms']:.3f} ms, idle "
+          f"share {1 - prof['busy_ms'] / prof['wall_ms']:.3f}; top kernels "
+          + ", ".join(f"{k[:50]} {v:.3f}" for k, v in prof["top_kernels"])
+          + f"; {card_line()}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return med
+
+
+SENTIMENT_LOSS_RTOL = 1e-5    # card against CPU, first step
+SENTIMENT_GRAD_TOL = 1e-4     # each gradient, of its norm
+# Adagrad's first update is about lr * sign(g): a gradient element at
+# rounding noise can take either sign, so updates are held by norm
+SENTIMENT_UPDATE_TOL = 1e-2
+
+
+def phase_sentiment_lstm(tpt, dev):
+    """The LoD-fed program of the sequence slice: the book's
+    stacked_lstm_net at its widths (SENTIMENT; sentiment_program)
+    trained by Adagrad(0.002).minimize through append_backward and
+    Executor, fed a
+    seeded ragged batch of 128 reviews of 32-512 tokens as flat rows + a
+    level-1 LoD (the executor pads it beside words@seq_len; the three
+    dynamic_lstm run their peepholes, the middle one reversed within
+    each review). Card against CPU on the first step from the same
+    startup values: loss within 1e-5 relative, each parameter's gradient
+    within 1e-4 of its norm, each update within 1e-2 of its norm. Then
+    2 warm-up and 5 timed steps on two batches: step_ms, tokens/s (real
+    and padded), peak memory, and one profiled step's launches, host
+    syncs and idle share."""
+    api = port_static_api()
+    cfg = SENTIMENT
+    program = sentiment_program(api, cfg)
+    main = program[0]
+    lstm_ops = [o for o in main.global_block().ops if o.type == "lstm"]
+    check(len(lstm_ops) == 3 and all(o.inputs.get("Length")
+                                     for o in lstm_ops),
+          "the LSTMs do not read the reviews' lengths")
+    cpu_scope = api.pt.Scope()
+    with api.pt.scope_guard(cpu_scope):
+        api.pt.Executor("cpu").run(program[1], feed={}, fetch_list=[],
+                                   scope=cpu_scope)
+    start = {n: cpu_scope.find_var(n).get().numpy()
+             for n in sentiment_params(main)}
+    params = [n for n in start if n + "@GRAD" in main.global_block().vars]
+    n_params = sum(start[n].size for n in params)
+    batches = [sentiment_batch(cfg, s) for s in range(2)]
+    real = [int(b[1][0][-1]) for b in batches]
+    padded = [cfg["batch"] * int(np.diff(b[1][0]).max()) for b in batches]
+    grads_of = [n + "@GRAD" for n in params]
+    got = []
+    for device in ("cpu", dev):
+        exe, scope = api.pt.Executor(device), api.pt.Scope()
+        t0 = time.perf_counter()
+        with api.pt.scope_guard(scope):
+            exe.run(program[1], feed={}, fetch_list=[], scope=scope)
+            for n, v in start.items():
+                scope.var(n).set(api.pt.TpuTensor(torch.from_numpy(v).to(
+                    device)))
+            out = exe.run(main, feed=sentiment_feed(api, batches[0], device),
+                          fetch_list=[program[2]] + grads_of, scope=scope)
+            after = {n: scope.find_var(n).get().numpy() for n in params}
+        got.append((float(np.asarray(out[0]).ravel()[0]),
+                    dict(zip(params, out[1:])), after,
+                    time.perf_counter() - t0))
+    (cl, cg, cp, cpu_s), (gl, gg, gp, _) = got
+    loss_err = abs(gl - cl) / abs(cl)
+    gerrs = {n: float(np.linalg.norm(gg[n] - cg[n]) /
+                      max(np.linalg.norm(cg[n]), 1e-30)) for n in params}
+    uerrs = update_errors(gp, cp, {n: start[n] for n in params})
+    gw, uw = max(gerrs, key=gerrs.get), max(uerrs, key=uerrs.get)
+    print(f"[sentiment_lstm] stacked_lstm_net (vocab {cfg['vocab']}, emb "
+          f"{cfg['emb']}, hid {cfg['hid']}, {cfg['stacked']} LSTMs, "
+          f"{n_params:,} parameters), batch {cfg['batch']} reviews of "
+          f"{cfg['min_len']}-{cfg['max_len']} tokens ({real[0]} tokens, "
+          f"padded to {padded[0]}), first step: loss card {gl!r} cpu {cl!r}, "
+          f"rel err {loss_err:.3e} (bound {SENTIMENT_LOSS_RTOL:g}); worst "
+          f"gradient error {gerrs[gw]:.3e} ({gw}, bound "
+          f"{SENTIMENT_GRAD_TOL:g}); worst update error {uerrs[uw]:.3e} "
+          f"({uw}, bound {SENTIMENT_UPDATE_TOL:g}); the CPU step took "
+          f"{cpu_s:.2f} s")
+    check(loss_err <= SENTIMENT_LOSS_RTOL, "card loss disagrees with the CPU")
+    check(gerrs[gw] <= SENTIMENT_GRAD_TOL, "card gradients disagree")
+    check(uerrs[uw] <= SENTIMENT_UPDATE_TOL, "card updates disagree")
+
+    exe, scope = api.pt.Executor(dev), api.pt.Scope()
+    feeds = [sentiment_feed(api, b, dev) for b in batches]
+    losses = []
+    with api.pt.scope_guard(scope):
+        exe.run(program[1], feed={}, fetch_list=[], scope=scope)
+        for n, v in start.items():
+            scope.var(n).set(api.pt.TpuTensor(torch.from_numpy(v).to(dev)))
+        it = iter(range(10 ** 6))
+
+        def step():
+            out = exe.run(main, feed=feeds[next(it) % 2],
+                          fetch_list=[program[2]], scope=scope,
+                          return_numpy=False)
+            losses.append(out[0].value)
+
+        times = _timed_steps(step, 2, 5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_call(step)
+    check(all(math.isfinite(float(v)) for v in losses), "a loss is not finite")
+    med = sorted(times)[len(times) // 2]
+    print(f"[sentiment_lstm] step_ms median {med:.3f} range "
+          f"{min(times):.3f}-{max(times):.3f} over {len(times)} steps (2 "
+          f"warm-up), tokens/s {sum(real) / 2 / med * 1e3:.1f} (padded "
+          f"{sum(padded) / 2 / med * 1e3:.1f}), peak memory {peak:.2f} GiB, "
+          f"losses {float(losses[0]):.4f} -> {float(losses[-1]):.4f}; one "
+          f"profiled step {prof['wall_ms']:.3f} ms: launches "
+          f"{prof['launches']}, host syncs {prof['syncs']}, device busy "
+          f"{prof['busy_ms']:.3f} ms, idle share "
+          f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}; top kernels "
+          + ", ".join(f"{k[:50]} {v:.3f}" for k, v in prof["top_kernels"])
+          + f"; {card_line()}")
+    return med
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5272,6 +5812,9 @@ def main():
     phase_cf_api(dev)
     phase_control_flow(tpt, dev)
     phase_ptb_lm(tpt, dev)
+    phase_seq_ops(dev)
+    phase_rnnlm_eager(tpt, dev)
+    phase_sentiment_lstm(tpt, dev)
     # fp32 rows: launches on the O1 path (phase bert), beside those of the
     # eager path (phase eager_bert); bf16 rows: on the O2 path (phase
     # bert_o2); fp16 rows: in the fp16 eager loop of phase tiny_o2 (no

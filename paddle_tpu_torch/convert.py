@@ -20,6 +20,18 @@ not take) cross as their bits.
 (params, optimizer slots, fp32 masters, step) into the port's
 ``TrainStep``: the reference keeps a tied weight under each of its names,
 the port under one.
+
+The recurrent layers (``nn.LSTM`` / ``GRU`` / ``SimpleRNN``,
+``RowConv``, ``dygraph.GRUUnit``) load by structured name like the rest,
+and the fluid ``lstm`` / ``gru`` / ``lstmp`` parameters are
+persistables that ``io`` carries by name: both packages keep the same
+layouts. Between the two LSTM forms the gate blocks move:
+:func:`fluid_lstm_to_rnn_gates` reorders the fluid ``lstm`` op's
+(c, i, f, o) to ``rnn_scan``'s (i, f, g, o), and
+:func:`lstm_state_from_cudnn` / :func:`lstm_state_from_cells` give
+``nn.LSTM``'s parameters from a ``cudnn_lstm`` WeightList or from
+per-layer cells whose [x; h] weight is one matrix (the static PTB
+script's).
 """
 from __future__ import annotations
 
@@ -110,3 +122,42 @@ def load_state_dict(model: torch.nn.Module, state: Dict[str, np.ndarray]):
             tgt.copy_(to_tensor(first).to(dtype=tgt.dtype,
                                           device=tgt.device))
     return model
+
+
+# the fluid lstm op's gate blocks are (c, i, f, o); rnn_scan's and
+# cuDNN's (i, f, g, o), g being the candidate c
+_FLUID_TO_RNN = (1, 2, 0, 3)
+
+
+def fluid_lstm_to_rnn_gates(arr) -> np.ndarray:
+    """A fluid ``lstm`` weight or bias, its last axis the four gate
+    blocks in (c, i, f, o), with them in ``rnn_scan``'s (i, f, g, o)."""
+    blocks = np.split(np.asarray(arr), 4, axis=-1)
+    return np.concatenate([blocks[k] for k in _FLUID_TO_RNN], axis=-1)
+
+
+def lstm_state_from_cudnn(weight_list, num_layers: int) -> Dict:
+    """A one-direction ``nn.LSTM``'s parameters from a ``cudnn_lstm``
+    WeightList ([Wx [I, 4H], Wh [H, 4H], B [4H]] a layer; gates
+    (i, f, g, o) in both): ``weight_ih_l{k}`` = Wx^T, ``weight_hh_l{k}``
+    = Wh^T, ``bias_ih_l{k}`` = B, ``bias_hh_l{k}`` = 0."""
+    out = {}
+    for k in range(num_layers):
+        wx, wh, b = (np.asarray(v) for v in weight_list[3 * k:3 * k + 3])
+        out[f"weight_ih_l{k}"] = np.ascontiguousarray(wx.T)
+        out[f"weight_hh_l{k}"] = np.ascontiguousarray(wh.T)
+        out[f"bias_ih_l{k}"] = b.copy()
+        out[f"bias_hh_l{k}"] = np.zeros_like(b)
+    return out
+
+
+def lstm_state_from_cells(weights, biases) -> Dict:
+    """``nn.LSTM``'s parameters from one-direction cells that multiply
+    [x; h] by W [I + H, 4H] and add b [4H], a layer each, gates
+    (i, f, g, o)."""
+    weight_list = []
+    for w, b in zip(weights, biases):
+        w = np.asarray(w)
+        h = w.shape[1] // 4
+        weight_list += [w[:w.shape[0] - h], w[w.shape[0] - h:], b]
+    return lstm_state_from_cudnn(weight_list, len(weight_list) // 3)

@@ -38,6 +38,14 @@ last op that touches it, unless it is fetched or goes back to the scope
 Persistables the block writes go back to the scope only after the whole
 block has run, so a failed run leaves the scope as it was.
 
+A feed of flat rows with a level-1 LoD (a ``TpuTensor`` or a
+``LoDTensorView`` over one) becomes the padded [B, T, ...] tensor and
+its ``{name}@seq_len`` lengths where the program declares that
+companion (``static.data(..., lod_level=1)``), as the JAX executor's
+``_lod_to_padded`` does; otherwise the rows stay flat, the scope holds
+the fed tensor, and the run publishes its LoD through ``core.lodctx``,
+interpreting the block as the JAX executor's eager path does.
+
 Control-flow ops (``ops/control_flow_ops.py``) interpret their
 sub-blocks op by op through :func:`run_op_desc`, finding them in the
 program :func:`current_program` publishes for the run. A control-flow op
@@ -58,7 +66,7 @@ import torch
 from . import flags, lodctx, rng
 from .dtype import from_host, host_array
 from .enforce import (EnforceNotMet, NotFoundError, PreconditionNotMetError,
-                      UnimplementedError, enforce, op_scope)
+                      enforce, op_scope)
 from .program import GRAD_SUFFIX, Block, OpDesc, Program, default_main_program
 from .registry import OpInfoMap, vjp_backward, vjp_forward
 from .scope import Scope, global_scope
@@ -336,16 +344,32 @@ def _reads(op: OpDesc, recorded: bool) -> List[str]:
     return names
 
 
-def _feed_tensor(name, value, dev) -> torch.Tensor:
+SEQ_LEN_SUFFIX = "@seq_len"
+
+
+def _feed_tensor(value, dev) -> torch.Tensor:
     if isinstance(value, TpuTensor):
-        if value.lod:
-            raise UnimplementedError(
-                f"feed {name!r} carries a LoD; LoD feeds are not ported "
-                f"(feed dense padded tensors and a length)")
         value = value.value
     if isinstance(value, torch.Tensor):
         return value.to(dev)
     return from_host(value).to(dev)
+
+
+def lod_to_padded(t: TpuTensor, dev):
+    """Flat rows + level-1 LoD -> (padded [B, T, ...], lengths [B]
+    int64) on ``dev``, T the longest row (at least 1), padding zero: the
+    JAX executor's ``_lod_to_padded``."""
+    offs = [int(o) for o in t.lod[-1]]
+    lens = [b - a for a, b in zip(offs, offs[1:])]
+    rows = t.value.to(dev)
+    tail = tuple(rows.shape[1:])
+    tmax = max(max(lens), 1) if lens else 1
+    padded = rows.new_zeros((len(lens), tmax) + tail)
+    if lens and offs[-1] > offs[0]:
+        seqs = rows[offs[0]:offs[-1]].split(lens)
+        got = torch.nn.utils.rnn.pad_sequence(seqs, batch_first=True)
+        padded[:, :got.shape[1]] = got
+    return padded, from_host(np.asarray(lens, np.int64)).to(dev)
 
 
 def _to_numpy(v: torch.Tensor) -> np.ndarray:
@@ -399,7 +423,20 @@ class Executor:
         scope = scope or global_scope()
         block = program.global_block()
         dev = self._device()
-        feed_vals = {n: _feed_tensor(n, v, dev) for n, v in feed.items()}
+        feed_vals, feed_lods = {}, {}
+        for name, value in feed.items():
+            value = getattr(value, "_t", value)       # a LoDTensorView
+            if isinstance(value, TpuTensor) and value.lod:
+                comp = name + SEQ_LEN_SUFFIX
+                if block.has_var(comp) and comp not in feed:
+                    feed_vals[name], feed_vals[comp] = lod_to_padded(
+                        value, dev)
+                    continue
+                # a host-side LoD program (beam decode): the flat rows,
+                # and the LoD through the eager side channel
+                scope.var(name).set(value)
+                feed_lods[name] = value.lod
+            feed_vals[name] = _feed_tensor(value, dev)
 
         an = self._analysis(program, block, feed_vals, fetch_names,
                             use_program_cache)
@@ -420,9 +457,9 @@ class Executor:
         # interpret the block eagerly (its debug modes, or a host-side
         # op in the block): tensor arrays then take their list form
         eager = an.eager or check or not use_program_cache or \
-            not flags.get_flag("executor_cache_programs")
+            not flags.get_flag("executor_cache_programs") or bool(feed_lods)
         with torch.no_grad(), rng.step_scope(self._step), op_device(dev), \
-                program_ctx(program), (lodctx.lod_scope() if eager
+                program_ctx(program), (lodctx.lod_scope(feed_lods) if eager
                                        else contextlib.nullcontext()):
             for idx, op in enumerate(block.ops):
                 if idx not in an.live:

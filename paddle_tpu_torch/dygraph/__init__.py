@@ -9,9 +9,9 @@ from .layers import (Layer, LayerList, ParameterList,  # noqa: F401
                      Sequential)
 from .tracer import (amp_level, amp_state, no_grad, set_amp_level,  # noqa: F401
                      trace_op)
-from .varbase import Parameter, to_variable  # noqa: F401
+from .varbase import Parameter, VarBase, to_variable  # noqa: F401
 from .compat1x import (  # noqa: F401
-    NCE, BilinearTensorProduct, ParallelEnv, SaveLoadConfig, TranslatedLayer, TreeConv, disable_dygraph,
+    NCE, BilinearTensorProduct, GRUUnit, ParallelEnv, SaveLoadConfig, TranslatedLayer, TreeConv, disable_dygraph,
     enable_dygraph, enabled, load, load_dygraph, no_grad_, prepare_context,
     save, save_dygraph, set_code_level, set_verbosity, start_gperf_profiler,
     stop_gperf_profiler)

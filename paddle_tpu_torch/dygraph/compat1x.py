@@ -1,12 +1,12 @@
 """fluid.dygraph 1.x export surface.
 
-Port of ``paddle_tpu/dygraph/compat1x.py:16-248`` and ``:277-308``:
-mode control, the single-process parallel environment, state-dict and
-layer persistence, ``TranslatedLayer`` over the inference-model IO, the
-dy2static and profiler switches, and the 1.x layers
-``BilinearTensorProduct``, ``NCE`` and ``TreeConv``. ``GRUUnit`` and
-``declarative`` need modules not ported yet: they raise with the
-ROADMAP item that brings them (:data:`DEFERRED`).
+Port of ``paddle_tpu/dygraph/compat1x.py:16-308``: mode control, the
+single-process parallel environment, state-dict and layer persistence,
+``TranslatedLayer`` over the inference-model IO, the dy2static and
+profiler switches, and the 1.x layers ``BilinearTensorProduct``,
+``GRUUnit``, ``NCE`` and ``TreeConv``. ``declarative`` and the names
+beside it in :data:`DEFERRED` need modules not ported yet: they raise
+with the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -23,7 +23,6 @@ from .tracer import no_grad, trace_op
 
 # name -> ROADMAP Queue 1 item that ports what it needs
 DEFERRED = {
-    "GRUUnit": "4e (the gru_unit op of ops/rnn_ops.py)",
     "TracedLayer": "5 (jit.TracedLayer, jit/dy2static.py)",
     "declarative": "5 (jit.to_static, jit/dy2static.py)",
     "dygraph_to_static_func": "5 (jit.to_static, jit/dy2static.py)",
@@ -237,6 +236,36 @@ class BilinearTensorProduct(Layer):
             out = trace_op(self._act, {"X": [out]}, {},
                            out_slots=["Out"])[0]
         return out
+
+
+class GRUUnit(Layer):
+    """ref: dygraph/nn.py GRUUnit: one gru step over a pre-projected
+    input [B, 3D]; returns (hidden, reset_hidden_prev, gate)."""
+
+    def __init__(self, size, param_attr=None, bias_attr=None,
+                 activation="tanh", gate_activation="sigmoid",
+                 origin_mode=False, dtype="float32"):
+        super().__init__()
+        from ..nn import _init_of
+        d = size // 3
+        self.weight = self.create_parameter(
+            (d, 3 * d), default_initializer=_init_of(param_attr, None))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            (1, 3 * d), is_bias=True,
+            default_initializer=_init_of(bias_attr, None))
+        codes = {"identity": 0, "sigmoid": 1, "tanh": 2, "relu": 3}
+        self._attrs = {"activation": codes[activation],
+                       "gate_activation": codes[gate_activation],
+                       "origin_mode": origin_mode}
+
+    def forward(self, input, hidden):
+        ins = {"Input": [input], "HiddenPrev": [hidden],
+               "Weight": [self.weight]}
+        if self.bias is not None:
+            ins["Bias"] = [self.bias]
+        return tuple(trace_op("gru_unit", ins, self._attrs,
+                              out_slots=["Hidden", "ResetHiddenPrev",
+                                         "Gate"]))
 
 
 class NCE(Layer):

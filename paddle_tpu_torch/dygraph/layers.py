@@ -55,6 +55,10 @@ class Layer(torch.nn.Module):
         return Parameter(default_initializer(shape, dtype).to(get_device()),
                          name=name)
 
+    def add_parameter(self, name: str, parameter: Parameter) -> Parameter:
+        self.register_parameter(name, parameter)
+        return parameter
+
     def add_sublayer(self, name: str, sublayer: "Layer") -> "Layer":
         self.add_module(name, sublayer)
         return sublayer

@@ -137,6 +137,10 @@ for _name, _member in _MEMBERS.items():
 torch.Tensor.numpy = _numpy
 
 
+# the eager tensor is torch's (``dygraph.VarBase``, ``nn.VarBase``)
+VarBase = torch.Tensor
+
+
 class Parameter(torch.nn.Parameter):
     """A trainable leaf (ref: ``framework.py:5063`` Parameter): a
     ``torch.nn.Parameter`` with the reference's ``name``, ``trainable``

@@ -5,8 +5,7 @@ Port of ``paddle_tpu/nn/__init__.py``, with ``layers_ext.py``,
 reference's layouts (``Linear`` is ``[in, out]``, ``Conv2D`` OIHW in
 either data format, ``Conv2DTranspose`` [in, out / groups, kh, kw]), so
 weights carry across with no transposes. ``GRU``, ``LSTM`` and
-``SimpleRNN`` (``nn/rnn.py``) need the ``rnn_scan`` op, ROADMAP Queue 1
-item 4e: they raise.
+``SimpleRNN`` live in ``nn/rnn.py``.
 """
 from __future__ import annotations
 
@@ -14,7 +13,6 @@ import math
 
 import torch
 
-from ..core.enforce import UnimplementedError
 from ..device import get_device
 from ..dygraph.layers import (Layer, LayerList, ParameterList,  # noqa: F401
                               Sequential)
@@ -446,20 +444,8 @@ class BCEWithLogitsLoss(Layer):
                                                   self._reduction)
 
 
-def _deferred_layer(name, what):
-    """A class whose construction raises: ``what`` is not ported yet."""
-    class _Deferred(Layer):
-        def __init__(self, *args, **kwargs):
-            raise UnimplementedError(
-                f"nn.{name} needs {what}: ROADMAP Queue 1 item 4e")
-    _Deferred.__name__ = name
-    return _Deferred
-
-
-GRU = _deferred_layer("GRU", "the rnn_scan op (nn/rnn.py)")
-LSTM = _deferred_layer("LSTM", "the rnn_scan op (nn/rnn.py)")
-SimpleRNN = _deferred_layer("SimpleRNN", "the rnn_scan op (nn/rnn.py)")
-VarBase = torch.Tensor        # the eager tensor is torch's
+from ..dygraph.varbase import VarBase  # noqa: E402,F401
+from .rnn import GRU, LSTM, SimpleRNN  # noqa: E402,F401
 
 from .layers_ext import (BCELoss, Conv3D, Conv3DTranspose,  # noqa: E402,F401
                          CosineSimilarity, CTCLoss, Dropout2D, GRUCell,

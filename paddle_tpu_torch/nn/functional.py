@@ -5,7 +5,7 @@ through ``trace_op`` into the op registry, so the AMP casts apply
 exactly as in the reference; ``interpolate``, ``smooth_l1_loss`` and
 ``cosine_similarity``, which the reference runs through
 ``trace_with_fn`` and not the registry, are torch code here.
-``ctc_loss`` needs the ``warpctc`` op (ROADMAP Queue 1 item 4e) and
+``ctc_loss`` needs the ``warpctc`` op (ROADMAP Queue 1 item 4e-ii) and
 raises.
 """
 from __future__ import annotations
@@ -524,7 +524,7 @@ def ctc_loss(log_probs, labels, input_lengths=None, label_lengths=None,
              blank=0, reduction="mean", norm_by_times=False):
     raise UnimplementedError(
         "nn.functional.ctc_loss needs the warpctc op: ROADMAP Queue 1 "
-        "item 4e")
+        "item 4e-ii")
 
 
 def cosine_similarity(x1, x2, axis=1, eps=1e-8):

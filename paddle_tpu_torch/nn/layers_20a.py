@@ -5,8 +5,7 @@ Port of ``paddle_tpu/nn/layers_20a.py``: the remaining activations,
 [N, C, 1, L]), the 3-D pools, the adaptive 1-D / 3-D pools, the padding
 layers (pad2d / pad3d), ``Bilinear``, ``HSigmoid``, and the cell drivers
 ``RNN`` / ``BiRNN`` with ``SimpleRNNCell`` (a composition of ``linear``
-and an activation). ``RowConv`` needs the ``row_conv`` op, ROADMAP Queue
-1 item 4e, and raises.
+and an activation), and ``RowConv`` over the ``row_conv`` op.
 """
 from __future__ import annotations
 
@@ -16,7 +15,6 @@ import numpy as np
 import torch
 
 from ..core import rng
-from ..core.enforce import UnimplementedError
 from ..dygraph.layers import Layer
 from ..dygraph.tracer import trace_op
 from . import functional as F
@@ -370,9 +368,20 @@ class Bilinear(Layer):
 
 
 class RowConv(Layer):
+    """ref: nn/layer/extension.py RowConv (lookahead conv)."""
+
     def __init__(self, num_channels, future_context_size, param_attr=None):
-        raise UnimplementedError(
-            "nn.RowConv needs the row_conv op: ROADMAP Queue 1 item 4e")
+        super().__init__()
+        from . import _init_of
+        self.weight = self.create_parameter(
+            (future_context_size, num_channels), attr=param_attr,
+            default_initializer=_init_of(
+                param_attr, initializer.XavierNormal()))
+
+    def forward(self, x):
+        return trace_op("row_conv",
+                        {"X": [_v(x)], "Filter": [self.weight]}, {},
+                        out_slots=["Out"])[0]
 
 
 class HSigmoid(Layer):

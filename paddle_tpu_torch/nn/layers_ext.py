@@ -6,9 +6,9 @@ vision.py PixelShuffle, norm.py SpectralNorm / LocalResponseNorm,
 pooling.py MaxUnPool2D, loss.py KLDivLoss / NLLLoss / BCELoss /
 SmoothL1Loss / MarginRankingLoss, rnn.py LSTMCell / GRUCell, distance.py
 PairwiseDistance, common.py CosineSimilarity). The cells run one step of
-the reference's ``rnn_scan`` cell as torch code (the op itself is item
-4e), with its packed weights and gate order. ``CTCLoss`` needs the
-``warpctc`` op, ROADMAP Queue 1 item 4e, and raises.
+the reference's ``rnn_scan`` cell as torch code, with its packed
+weights and gate order. ``CTCLoss`` needs the ``warpctc`` op, ROADMAP
+Queue 1 item 4e-ii, and raises.
 """
 from __future__ import annotations
 
@@ -254,7 +254,7 @@ class MarginRankingLoss(Layer):
 class CTCLoss(Layer):
     def __init__(self, blank=0, reduction="mean"):
         raise UnimplementedError(
-            "nn.CTCLoss needs the warpctc op: ROADMAP Queue 1 item 4e")
+            "nn.CTCLoss needs the warpctc op: ROADMAP Queue 1 item 4e-ii")
 
 
 class CosineSimilarity(Layer):

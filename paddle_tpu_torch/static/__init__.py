@@ -12,13 +12,16 @@ both packages.
 
 Shape inference (``_op``) runs each op's compute on ``meta`` tensors
 (or its ``infer_meta`` rule) where the JAX package runs
-``jax.eval_shape``. The first simple-layer table is ported whole: a
-builder whose op the port lacks builds, and running it raises
-``NotFoundError``, as the JAX package does for an unregistered op. Of
-the later tables, only the builders of ops the port registers. The
-control-flow builders (``control_flow.py``), the comparison and
-``increment`` builders, the tensor-array surface of the module-parity
-builders and ``lstm`` / ``lstm_unit`` of the RNN builders are ported.
+``jax.eval_shape``, inside ``lodctx.infer_shape_scope`` as there (an
+op over a LoD returns a shape proxy). The first simple-layer table is
+ported whole: a builder whose op the port lacks builds, and running it
+raises ``NotFoundError``, as the JAX package does for an unregistered
+op. Of the later tables, only the builders of ops the port registers.
+The control-flow builders (``control_flow.py``), the comparison and
+``increment`` builders, the tensor-array surface and the step
+extractors of the module-parity builders, the recurrent builders
+(``dynamic_lstm``, ``dynamic_gru``, ``row_conv``) and ``dynamic_lstmp``,
+``gru_unit``, ``lstm`` / ``lstm_unit`` of the RNN builders are ported.
 Not ported yet: ``CompiledProgram``, static AMP, ``nets``, the rest of
 the RNN, SSD and module-parity builders and the later tables' other
 builders (ROADMAP Queue 1, item 5).
@@ -31,6 +34,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..core import dtype as dtypes
+from ..core import lodctx
 from ..core.backward import append_backward, gradients  # noqa: F401
 from ..core.enforce import InvalidArgumentError, enforce
 from ..core.program import (Block, Program, VarDesc,  # noqa: F401
@@ -164,7 +168,8 @@ def _op(block: Block, type_: str, inputs, outputs, attrs):
                                    device="meta"))
         specs[slot] = row
     try:
-        outs = run_meta(opdef, specs, attrs)
+        with lodctx.infer_shape_scope():
+            outs = run_meta(opdef, specs, attrs)
     except Exception as e:
         # all input shapes were known, so a failure here means the op is
         # genuinely mis-built (bad attr, rank mismatch): fail loudly at
@@ -1191,7 +1196,7 @@ def _make_simple_layer(lname, op_type, arg_slots, out_slots, defaults):
 
 # builders the JAX package overrides with parameterized ones not ported
 # yet: their table forms would build a different graph
-_NOT_PORTED = {"crf_decoding", "row_conv", "beam_search"}
+_NOT_PORTED = {"crf_decoding", "beam_search"}
 
 for _lname, (_otype, _slots, _osl, _defs) in _SIMPLE_LAYERS.items():
     if not hasattr(nn, _lname) and _lname not in _NOT_PORTED:
@@ -1228,6 +1233,95 @@ def _sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
 
 _sequence_conv.__name__ = "sequence_conv"
 nn.sequence_conv = staticmethod(_sequence_conv)
+
+
+def _recurrent_builders():
+    """The JAX package's fluid builders of the recurrent ops
+    (``paddle_tpu/static/__init__.py:1352-1454``): ``dynamic_lstm``
+    (whose ragged input hands its @seq_len companion to the op's Length
+    and on to Hidden and Cell), ``dynamic_gru`` and ``row_conv``, each
+    creating its parameters."""
+
+    def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                     bias_attr=None, use_peepholes=True,
+                     is_reverse=False, gate_activation="sigmoid",
+                     cell_activation="tanh",
+                     candidate_activation="tanh", name=None):
+        """ref: fluid/layers/nn.py dynamic_lstm: input is the
+        pre-projected [B, T, 4D] sequence (fc + lstm pairing).
+        use_peepholes defaults True like the reference (bias is then
+        [1, 7D]: gate biases + W_ic/W_fc/W_oc peephole weights)."""
+        d = size // 4
+        w = create_parameter([d, 4 * d], "float32", attr=param_attr)
+        b = create_parameter([1, 7 * d if use_peepholes else 4 * d],
+                             "float32", is_bias=True, attr=bias_attr)
+        ins = {"Input": [input.name], "Weight": [w.name],
+               "Bias": [b.name]}
+        comp = getattr(input, "lod_companion", None)
+        if comp:        # ragged batch: per-sequence lengths (and reverse)
+            ins["Length"] = [comp]
+        if h_0 is not None:
+            ins["H0"] = [h_0.name]
+        if c_0 is not None:
+            ins["C0"] = [c_0.name]
+        hidden = _new_tmp(input.block, name or "lstm_hidden")
+        cell = _new_tmp(input.block, "lstm_cell")
+        bg = _new_tmp(input.block, "lstm_gates")
+        bc = _new_tmp(input.block, "lstm_preact")
+        _op(input.block, "lstm", ins,
+            {"Hidden": [hidden.name], "Cell": [cell.name],
+             "BatchGate": [bg.name], "BatchCellPreAct": [bc.name]},
+            {"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+             "gate_activation": gate_activation,
+             "cell_activation": cell_activation,
+             "candidate_activation": candidate_activation})
+        if comp:
+            hidden.lod_companion = comp
+            cell.lod_companion = comp
+        return hidden, cell
+
+    def dynamic_gru(input, size, h_0=None, param_attr=None,
+                    bias_attr=None, is_reverse=False,
+                    gate_activation="sigmoid", candidate_activation="tanh",
+                    origin_mode=False, name=None):
+        """ref: fluid/layers/nn.py dynamic_gru: input [B, T, 3D]."""
+        w = create_parameter([size, 3 * size], "float32",
+                             attr=param_attr)
+        b = create_parameter([1, 3 * size], "float32", is_bias=True,
+                             attr=bias_attr)
+        ins = {"Input": [input.name], "Weight": [w.name],
+               "Bias": [b.name]}
+        if h_0 is not None:
+            ins["H0"] = [h_0.name]
+        hidden = _new_tmp(input.block, name or "gru_hidden")
+        bg = _new_tmp(input.block, "gru_gates")
+        br = _new_tmp(input.block, "gru_reset")
+        bh = _new_tmp(input.block, "gru_hidden_b")
+        _op(input.block, "gru", ins,
+            {"Hidden": [hidden.name], "BatchGate": [bg.name],
+             "BatchResetHiddenPrev": [br.name],
+             "BatchHidden": [bh.name]},
+            {"is_reverse": is_reverse, "origin_mode": origin_mode,
+             "gate_activation": gate_activation,
+             "activation": candidate_activation})
+        return hidden
+
+    def row_conv(input, future_context_size, param_attr=None,
+                 act=None, name=None):
+        d = input.shape[-1]
+        w = create_parameter([future_context_size, int(d)], "float32",
+                             attr=param_attr)
+        out = _new_tmp(input.block, name or "row_conv")
+        _op(input.block, "row_conv",
+            {"X": [input.name], "Filter": [w.name]},
+            {"Out": [out.name]}, {})
+        return nn._maybe_act(out, act)
+
+    for fn in (dynamic_lstm, dynamic_gru, row_conv):
+        setattr(nn, fn.__name__, staticmethod(fn))
+
+
+_recurrent_builders()
 
 
 # The JAX package's later tranches of simple builders (its
@@ -1330,6 +1424,15 @@ _SIMPLE_LAYERS_4 = {
     "sequence_expand_as": ("sequence_expand_as",
                            [("x", "X"), ("y", "RefLength")], ["Out"],
                            {"max_len": 0}),
+    "sequence_reshape": ("sequence_reshape", [("input", "X")],
+                         ["Out", "OutLength"], {"new_dim": 1}),
+    "sequence_scatter": ("sequence_scatter",
+                         [("input", "X"), ("index", "Ids"),
+                          ("updates", "Updates")], ["Out"], {}),
+    "sequence_slice": ("sequence_slice",
+                       [("input", "X"), ("offset", "Offset"),
+                        ("length", "Length")], ["Out", "OutLength"],
+                       {"max_out_len": -1}),
     # --- layers/detection.py
     "polygon_box_transform": ("polygon_box_transform",
                               [("input", "Input")], ["Output"], {}),
@@ -1422,11 +1525,81 @@ _control_flow_array_builders()
 
 
 def _lstm_builders():
-    """``lstm_unit`` and ``lstm`` of the JAX package's RNN builders
-    (``paddle_tpu/static/__init__.py:2694-2741``, ref: layers/rnn.py).
-    ``lstm`` appends ``cudnn_lstm`` with the structured WeightList;
-    ``lstm_unit``'s op waits for ROADMAP Queue 1 item 4e (running it
-    raises NotFoundError, as any unregistered op does)."""
+    """``dynamic_lstmp``, ``gru_unit``, ``lstm_unit`` and ``lstm`` of the
+    JAX package's RNN builders (``paddle_tpu/static/__init__.py:
+    2629-2741``, ref: layers/rnn.py; ``lstm`` appends ``cudnn_lstm``
+    with the structured WeightList), and the step extractors
+    ``sequence_first_step`` / ``sequence_last_step`` over
+    ``sequence_pool`` (``:2236-2242``)."""
+
+    def dynamic_lstmp(input, size, proj_size, h_0=None, c_0=None,
+                      param_attr=None, bias_attr=None,
+                      use_peepholes=True, is_reverse=False,
+                      gate_activation="sigmoid", cell_activation="tanh",
+                      candidate_activation="tanh",
+                      proj_activation="tanh", name=None):
+        """ref: layers/rnn.py dynamic_lstmp: LSTM with a projection
+        (lstmp op); input pre-projected [B, T, 4D]."""
+        d = size // 4
+        w = create_parameter([proj_size, 4 * d], "float32",
+                             attr=param_attr)
+        proj = create_parameter([d, proj_size], "float32",
+                                attr=param_attr)
+        b = create_parameter([1, 7 * d if use_peepholes else 4 * d],
+                             "float32", is_bias=True, attr=bias_attr)
+        ins = {"Input": [input.name], "Weight": [w.name],
+               "ProjWeight": [proj.name], "Bias": [b.name]}
+        if h_0 is not None:
+            ins["H0"] = [h_0.name]
+        if c_0 is not None:
+            ins["C0"] = [c_0.name]
+        hidden = _new_tmp(input.block, name or "lstmp_proj")
+        cell = _new_tmp(input.block, "lstmp_cell")
+        bg = _new_tmp(input.block, "lstmp_gates")
+        bc = _new_tmp(input.block, "lstmp_preact")
+        bh = _new_tmp(input.block, "lstmp_hidden")
+        _op(input.block, "lstmp", ins,
+            {"Projection": [hidden.name], "Cell": [cell.name],
+             "BatchGate": [bg.name], "BatchCellPreAct": [bc.name],
+             "BatchHidden": [bh.name]},
+            {"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+             "gate_activation": gate_activation,
+             "cell_activation": cell_activation,
+             "candidate_activation": candidate_activation,
+             "proj_activation": proj_activation})
+        return hidden, cell
+
+    def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+                 activation="tanh", gate_activation="sigmoid",
+                 origin_mode=False):
+        """ref: layers/rnn.py gru_unit: one step; input pre-projected
+        [B, 3D]."""
+        d = size // 3
+        w = create_parameter([d, 3 * d], "float32", attr=param_attr)
+        ins = {"Input": [input.name], "HiddenPrev": [hidden.name],
+               "Weight": [w.name]}
+        if bias_attr is not False:
+            b = create_parameter([1, 3 * d], "float32", is_bias=True,
+                                 attr=bias_attr)
+            ins["Bias"] = [b.name]
+        out = _new_tmp(input.block, "gru_unit_h")
+        gate = _new_tmp(input.block, "gru_unit_gate")
+        reset = _new_tmp(input.block, "gru_unit_reset")
+        _op(input.block, "gru_unit", ins,
+            {"Hidden": [out.name], "Gate": [gate.name],
+             "ResetHiddenPrev": [reset.name]},
+            {"activation": activation,
+             "gate_activation": gate_activation,
+             "origin_mode": origin_mode})
+        return out, reset, gate
+
+    def sequence_first_step(input, length=None):
+        return nn.sequence_pool(input, companion_length_of(input, length),
+                                pooltype="FIRST")
+
+    def sequence_last_step(input, length=None):
+        return nn.sequence_pool(input, companion_length_of(input, length),
+                                pooltype="LAST")
 
     def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
                   param_attr=None, bias_attr=None, name=None):
@@ -1477,7 +1650,8 @@ def _lstm_builders():
             {"num_layers": num_layers, "is_bidirec": is_bidirec})
         return out, last_h, last_c
 
-    for fn in (lstm_unit, lstm):
+    for fn in (dynamic_lstmp, gru_unit, lstm_unit, lstm,
+               sequence_first_step, sequence_last_step):
         if not hasattr(nn, fn.__name__):
             setattr(nn, fn.__name__, staticmethod(fn))
 

@@ -13,10 +13,10 @@ the sub-blocks.
 
 Differentiability: ``StaticRNN``, ``cond``, ``switch_case`` and a
 ``while_loop`` with ``max_trip_count`` differentiate in both packages;
-an unbounded ``while_loop`` only in the port. ``DynamicRNN`` runs on the
-dense path: an input with a ``@seq_len`` companion builds a
-``sequence_mask`` op, which the port does not register yet (ROADMAP
-Queue 1 item 4e), and a LoD feed raises in the executor.
+an unbounded ``while_loop`` only in the port. ``DynamicRNN`` takes a
+ragged input (a LoD feed, which the executor pads beside its
+``@seq_len`` companion) through a ``sequence_mask`` of the companion
+that freezes each finished row's state, as the reference does.
 """
 from __future__ import annotations
 

@@ -9,8 +9,9 @@ its ``chip_smoke.py`` and ``paddle_tpu_torch`` are imported, its kernels
 built into its own ``build/``. PHASE is one of ``bert`` (phase bert, then
 one O1 step under the profiler: launches, host syncs, device busy),
 ``bert_o2``, ``eager_bert``, ``tensor_api``, ``nn_api``, ``nn_layers``,
-``cyclegan``, ``cf_api``, ``control_flow``, ``ptb_lm`` and ``fp16``
-(phase timing at fp16). To compare two commits on one card, run them in turns in one
+``cyclegan``, ``cf_api``, ``control_flow``, ``ptb_lm``, ``seq_ops``,
+``rnnlm_eager``, ``sentiment_lstm`` and ``fp16`` (phase timing at
+fp16). To compare two commits on one card, run them in turns in one
 call, one process each, e.g. parent, change, change, parent.
 """
 import os
@@ -82,6 +83,12 @@ def main():
             cs.phase_control_flow(tpt, dev)
         elif ph == "ptb_lm":
             cs.phase_ptb_lm(tpt, dev)
+        elif ph == "seq_ops":
+            cs.phase_seq_ops(dev)
+        elif ph == "rnnlm_eager":
+            cs.phase_rnnlm_eager(tpt, dev)
+        elif ph == "sentiment_lstm":
+            cs.phase_sentiment_lstm(tpt, dev)
         elif ph == "fp16":
             cs.phase_timing(fa, dev, torch.float16)
         else:

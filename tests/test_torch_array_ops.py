@@ -12,7 +12,7 @@ clamped at each end, as ``lax.dynamic_update_index_in_dim`` and
 Program, with the gradients of their captured inputs. Then the list form that both
 packages take while the LoD side channel is active, and
 tests/test_array_ops.py's cases. Its three ``sequence_*`` cases belong
-to ``ops/sequence_ops.py``, which waits for ROADMAP Queue 1 item 4e.
+to ``ops/sequence_ops.py``: ``test_torch_sequence_ops.py`` holds them.
 """
 import jax.numpy as jnp
 import numpy as np

@@ -3,8 +3,8 @@ tests/test_control_flow.py's programs (while_loop, nested, bounded with a
 gradient, While in block form, cond with a gradient, case, switch_case
 with negative and large indices, StaticRNN with a gradient, an NMT-style
 greedy decode, branches returning outer vars, DynamicRNN on the dense
-path) and a few of the port's own, built by the same code in both
-packages (``chip_smoke.CF_PROGRAMS``).
+path and on ragged LoD feeds) and a few of the port's own, built by the
+same code in both packages (``chip_smoke.CF_PROGRAMS``).
 
 For each program: the JSON the two packages' builders write is the same
 text (sub-blocks and the grad ops of append_backward included); the
@@ -17,10 +17,11 @@ every StaticRNN step, as ``lax.scan`` gives; the two grad routes
 agreeing on loops (the recompute route replaying the forward's masks);
 the array forms by the JAX executor's rule.
 
-The ragged DynamicRNN cases of tests/test_control_flow.py feed LoD
-tensors and build a ``sequence_mask`` op: the port raises on LoD feeds
-and registers ``sequence_mask`` with ROADMAP Queue 1 item 4e, so they
-run here on dense inputs.
+The ragged DynamicRNN cases of tests/test_control_flow.py feed flat
+rows with a level-1 LoD, which each executor pads beside the input's
+``@seq_len`` companion, and build a ``sequence_mask`` op that freezes
+each finished row's state (``dynamic_rnn_ragged``,
+``dynamic_rnn_memory_ragged``).
 """
 import types
 
@@ -131,6 +132,13 @@ def test_expected_values():
     out = run("dynamic_rnn")[0]
     np.testing.assert_allclose(out[0, :, 0], [1, 3, 6])
     o = run("dynamic_rnn_memory")[0]
+    assert o.shape == (1, 2, 7)
+    np.testing.assert_allclose(o[0, 0], np.full(7, 1.5))
+    o, last = run("dynamic_rnn_ragged")
+    np.testing.assert_allclose(o[0, :, 0], [1, 3, 6])
+    np.testing.assert_allclose(o[1, :, 0], [10, 10, 10])     # frozen
+    np.testing.assert_allclose(last[:, 0], [6, 10])
+    o = run("dynamic_rnn_memory_ragged")[0]
     assert o.shape == (1, 2, 7)
     np.testing.assert_allclose(o[0, 0], np.full(7, 1.5))
     stacked, index, length, step = run("array_decode")

@@ -16,9 +16,10 @@ other orders; measured errors are about 1e-6 of it, and a wrong gate,
 tap or pad moves them by O(1)).
 
 Every public name of the reference's ``nn`` and ``nn.functional``
-exists in the port; ``nn.GRU``, ``nn.LSTM``, ``nn.SimpleRNN``,
-``RowConv``, ``CTCLoss`` and ``F.ctc_loss`` raise and name ROADMAP item
-4e. The dropout layers are held in eval mode against the reference and
+exists in the port; ``CTCLoss`` and ``F.ctc_loss`` raise and name
+ROADMAP item 4e-ii, while ``nn.GRU``, ``nn.LSTM``, ``nn.SimpleRNN``,
+``RowConv`` and ``dygraph.GRUUnit`` (item 4e-i) are held against the
+reference in ``test_torch_rnn.py`` and build here. The dropout layers are held in eval mode against the reference and
 in train mode by what their masks do.
 """
 import inspect
@@ -164,13 +165,16 @@ def test_every_reference_name_exists():
 
 
 def test_item_4e_names_raise():
-    for make in (lambda: nn.GRU(3, 4), lambda: nn.LSTM(3, 4),
-                 lambda: nn.SimpleRNN(3, 4), lambda: nn.RowConv(3, 2),
-                 lambda: nn.CTCLoss(),
+    """The names of item 4e-ii raise; those of 4e-i build."""
+    for make in (lambda: nn.CTCLoss(),
                  lambda: F.ctc_loss(torch.zeros(2, 3, 4),
                                     torch.zeros(2, 2, dtype=torch.int64))):
-        with pytest.raises(UnimplementedError, match="item 4e"):
+        with pytest.raises(UnimplementedError, match="item 4e-ii"):
             make()
+    for make in (lambda: nn.GRU(3, 4), lambda: nn.LSTM(3, 4),
+                 lambda: nn.SimpleRNN(3, 4), lambda: nn.RowConv(3, 2),
+                 lambda: tdy.GRUUnit(6)):
+        assert list(make().parameters())
 
 
 @pytest.mark.parametrize("name", ["Dropout2D", "Dropout3d", "AlphaDropout"])

@@ -23,6 +23,7 @@ import paddle_tpu_torch as tpt
 from paddle_tpu_torch.core.registry import OpInfoMap
 from paddle_tpu_torch.testing.cf_cases import CF_CASES
 from paddle_tpu_torch.testing.nn_cases import NN_CASES
+from paddle_tpu_torch.testing.seq_cases import SEQ_TYPES
 from test_torch_tensor_ops import (check_forward, check_gradient,
                                    ref_module)
 
@@ -62,8 +63,9 @@ def test_registry_holds_the_slice_against_the_reference():
     jops, pops = JaxOpInfoMap.instance()._ops, OpInfoMap.instance()._ops
     assert not set(pops) - set(jops)
     new = slice_types()
-    # the later slices' types (control flow's) aside
-    later = {c.op for c in CF_CASES}
+    # the later slices' types (control flow's, then the sequence
+    # slice's) aside
+    later = {c.op for c in CF_CASES} | SEQ_TYPES
     assert len(new) == 63 and len(set(pops) - later) == PORTED_BEFORE + 63
     assert new <= set(pops)
     assert collections.Counter(ref_module(t) for t in new) == SLICE

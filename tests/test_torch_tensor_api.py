@@ -254,9 +254,10 @@ def test_equal_all_falls_back_to_allclose():
 
 def test_deferred_and_refused_names_raise():
     """Complex data (item 12), the 1.x layers and aliases still deferred
-    (items 4e, 5, 8) raise and name their ROADMAP item (the four of
-    item 4b are held against the reference in test_torch_nn_layers.py,
-    TreeConv of item 4d in test_torch_parity_ops.py);
+    (items 5, 8) raise and name their ROADMAP item (the four of item 4b
+    are held against the reference in test_torch_nn_layers.py, TreeConv
+    of item 4d in test_torch_parity_ops.py, GRUUnit of item 4e-i in
+    test_torch_rnn.py);
     ``nonzero(as_tuple=True)`` and ``unique(axis=...)`` raise as in the
     reference."""
     from paddle_tpu_torch import dygraph
@@ -264,7 +265,7 @@ def test_deferred_and_refused_names_raise():
         tpt.to_tensor(np.array([1 + 2j]))
     with pytest.raises(UnimplementedError, match="item 12"):
         tpt.to_tensor([1.0, 2.0], dtype="complex64")
-    for name, item in (("GRUUnit", "4e"), ("TracedLayer", "item 5"),
+    for name, item in (("TracedLayer", "item 5"),
                        ("declarative", "item 5"),
                        ("dygraph_to_static_func", "item 5"),
                        ("DataParallel", "item 8")):

@@ -34,6 +34,7 @@ from paddle_tpu_torch.device import op_device
 from paddle_tpu_torch.testing.cf_cases import CF_CASES
 from paddle_tpu_torch.testing.nn_cases import NN_CASES
 from paddle_tpu_torch.testing.op_cases import CASES
+from paddle_tpu_torch.testing.seq_cases import SEQ_TYPES
 
 # reference module -> the op types this slice took from it
 SLICE = {
@@ -44,8 +45,8 @@ OTHER = ("paddle_tpu.ops.tensor_ops", "paddle_tpu.ops.parity_ops",
          "paddle_tpu.ops.loss_ops", "paddle_tpu.ops.long_tail_ops")
 PORTED_BEFORE = 75
 # the op types later slices ported, by their case lists (the rest
-# of paddle.nn, then control flow)
-LATER = {c.op for c in NN_CASES} | {c.op for c in CF_CASES}
+# of paddle.nn, then control flow, then sequences)
+LATER = {c.op for c in NN_CASES} | {c.op for c in CF_CASES} | SEQ_TYPES
 PARITY_TYPES = {"allclose", "bernoulli", "diag_v2", "empty", "eye",
                 "histogram", "isinf", "isnan", "randperm"}
 

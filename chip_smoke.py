@@ -198,6 +198,27 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      profiled step) and 35 greedy tokens through While and tensor
      arrays, equal on the card and the CPU, with ms and host syncs a
      token.
+  33. seq_ops: the 19 op types of the sequence slice (sequence_ops,
+     rnn_ops), every case of paddle_tpu_torch/testing/seq_cases.py on the
+     card against the CPU, the executor's LoD-feed padding, host syncs;
+  34. rnnlm_eager: PTB-large through eager paddle.nn.LSTM (cuDNN), card
+     against CPU, against the static routes, and timed;
+  35. sentiment_lstm: the book's stacked-LSTM sentiment net on ragged
+     LoD feeds through the fluid lstm, card against CPU, and timed;
+  36. decode_ops: the 27 op types of the decoding slice (decode_ops,
+     fusion_ops, long_tail_ops, fusion_seqpool_cvm_concat,
+     deformable_conv_v1), every case of
+     paddle_tpu_torch/testing/decode_cases.py on the card against the
+     CPU, forward and gradient; the true-LoD beam_search step and
+     beam_search_decode over LoD tensor arrays, and the book's beam
+     decode program through the Executor, equal; host syncs a call;
+  37. crnn, the main path of the decoding slice: the CRNN text recognizer
+     of arXiv:1507.05717 Table 1 (8,722,725 parameters, 1x32x100 gray
+     images, T = 26, 37 classes) trained eagerly with nn.CTCLoss and
+     Adadelta: one batch-32 step card against CPU, 20 timed steps at
+     batch 256 (step_ms, images/s, peak memory, launches, host syncs,
+     busy and idle), and a held-out batch's greedy decode and edit
+     distance, equal on the card and the CPU.
 Phase 3 also times K1-K3 in fp16 at BERT-base.
 The last two lines are the kernels' JSON record (each kernel at fp32,
 its launches from phase 7 and, as launches_eager_bert, from phase 25;
@@ -4137,26 +4158,36 @@ def cyclegan_state(nets):
              for k, v in net.state_dict().items()} for net in nets]
 
 
-def conv_device_us(fn):
-    """Device time (us) of the kernels that convolution ops launch in one
-    call of fn: forward and backward (aten::*convolution*), whatever the
+def device_us_by_family(fn, families):
+    """Device time (us) of the kernels that each family of aten ops
+    launches in one call of fn, forward and backward, whatever the
     kernels are named (cuDNN's fp32 algorithms include FFT and Winograd
-    ones)."""
+    ones). ``families`` maps a name to substrings of op names
+    ("convolution" matches aten::convolution and
+    aten::convolution_backward); a kernel goes to the family of its
+    nearest matching op, or to "other"."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total = dict.fromkeys([*families, "other"], 0.0)
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
             continue
-        parent = e
-        while parent is not None and "convolution" not in parent.name:
+        parent, fam = e, None
+        while parent is not None and fam is None:
+            fam = next((f for f, keys in families.items()
+                        if any(k in parent.name for k in keys)), None)
             parent = parent.cpu_parent
-        if parent is not None:
-            total += sum(k.duration for k in e.kernels)
+        total[fam or "other"] += sum(k.duration for k in e.kernels)
     return total
+
+
+def conv_device_us(fn):
+    """Device time (us) of the kernels that convolution ops launch in one
+    call of fn, forward and backward."""
+    return device_us_by_family(fn, {"conv": ("convolution",)})["conv"]
 
 
 def phase_cyclegan(tpt, dev):
@@ -5757,6 +5788,423 @@ def phase_sentiment_lstm(tpt, dev):
     return med
 
 
+def lod_beam_step(device):
+    """decode_cases' true-LoD beam_search step through the port's op on
+    ``device``: (selected ids, selected scores, their LoD)."""
+    from paddle_tpu_torch.core import lodctx
+    from paddle_tpu_torch.core import program as port_program
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.testing import decode_cases as dc
+    lod = dc.LOD_STEP["lod"]
+    ins = {s: [torch.from_numpy(v).to(device) for v in vs]
+           for s, vs in dc.LOD_STEP["inputs"].items()}
+    with lodctx.lod_scope({"pi": lod, "ps": lod}), lodctx.op_scope(
+            dc.lod_step_op(port_program)):
+        out = OpInfoMap.instance().get("beam_search").compute(
+            ins, dict(dc.LOD_STEP["attrs"]))
+        return (out["selected_ids"][0], out["selected_scores"][0],
+                lodctx.get_lod("si"))
+
+
+def lod_backtrace(device):
+    """beam_search_decode over decode_cases' tensor arrays of LoD entries
+    through the port's op on ``device``: (sentence ids, scores, LoD)."""
+    from paddle_tpu_torch.core import lodctx
+    from paddle_tpu_torch.core import program as port_program
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.ops.array_ops import LoDTensorArrayValue
+    from paddle_tpu_torch.testing import decode_cases as dc
+    ids, scores = dc.lod_arrays()
+    desc = port_program.OpDesc(
+        "beam_search_decode", {"Ids": ["ia"], "Scores": ["sa"]},
+        {"SentenceIds": ["so"], "SentenceScores": ["sc"]},
+        {"beam_size": 2, "end_id": 9})
+    with lodctx.lod_scope({}), lodctx.op_scope(desc):
+        out = OpInfoMap.instance().get("beam_search_decode").compute(
+            {"Ids": [LoDTensorArrayValue(
+                (torch.from_numpy(v).to(device), l) for v, l in ids)],
+             "Scores": [LoDTensorArrayValue(
+                 (torch.from_numpy(v).to(device), l) for v, l in scores)]},
+            dict(desc.attrs))
+        return (out["SentenceIds"][0], out["SentenceScores"][0],
+                lodctx.get_lod("so"))
+
+
+def phase_decode_ops(dev):
+    """The 27 op types of the decoding slice (decode_ops, fusion_ops,
+    long_tail_ops, fusion_seqpool_cvm_concat, deformable_conv_v1): every
+    case of decode_cases on the card against the port on the CPU at each
+    case's bound, forward and gradient (warpctc through torch's CTC,
+    an infeasible label at the reference's floor; sampling_id and
+    random_crop draw on the CPU, so their draws are equal); the true-LoD
+    beam_search step and beam_search_decode over LoD tensor arrays; the
+    book's beam decode program (While, beam_search over LoD arrays,
+    beam_search_decode) through the Executor, ids and LoD equal; then
+    the host syncs of one call of each type's first case."""
+    from paddle_tpu_torch.testing import decode_cases as dc
+    worst = {}
+    types_seen = hold_cases(dc.DECODE_CASES, dev, worst)
+    by_type = dict.fromkeys(sorted(types_seen), 0.0)   # integer ones: equal
+    for k, v in worst.items():
+        t = next(c.op for c in dc.DECODE_CASES if k.startswith(c.id + "."))
+        by_type[t] = max(by_type[t], v)
+    lod_syncs = {}
+    for name, run in (("beam_search (LoD)", lod_beam_step),
+                      ("beam_search_decode (arrays)", lod_backtrace)):
+        (gi, gs, gl), (wi, ws, wl) = run(dev), run("cpu")
+        check(torch.equal(gi.cpu(), wi) and gl == wl and torch.allclose(
+            gs.cpu(), ws, rtol=1e-6, atol=0.0), f"{name} differs on the card")
+        lod_syncs[name] = profile_call(lambda: run(dev))["syncs"]
+    api = port_static_api()
+    runs = []
+    for device in (dev, "cpu"):
+        def tensor(v, lod, device=device):
+            return api.pt.TpuTensor(v, lod, device=device)
+        runs.append(dc.mt_decode_run(api, api.pt.Executor(device),
+                                     tensor)[2])
+    ((gi, gl), (gs, _)), ((wi, wl), (ws, _)) = runs
+    check(np.array_equal(gi, wi) and gl == wl and
+          np.allclose(gs, ws, rtol=1e-5, atol=1e-6),
+          "the beam decode program differs on the card")
+    first = {}
+    for c in dc.DECODE_CASES:
+        first.setdefault(c.op, c.id)
+    by_case = case_syncs(dc.DECODE_CASES, first.values(), dev)
+    syncs = {op: by_case[cid] for op, cid in sorted(first.items())}
+    print(f"[decode_ops] {len(dc.DECODE_CASES)} cases of {len(types_seen)} "
+          f"op types on the card against the CPU: all agree; largest float "
+          f"error by type "
+          + ", ".join(f"{k} {v:.2e}" for k, v in by_type.items())
+          + f"; the LoD beam step and array backtrace equal; the book's "
+          f"beam decode {len(gl[0]) - 1} sources, {len(gl[1]) - 1} "
+          f"sentences, {gi.size} tokens, equal; host syncs of one call of "
+          f"each type's first case on inputs already on the card: "
+          + ", ".join(f"{k} {n}" for k, n in {**syncs, **lod_syncs}.items()))
+    check(len(types_seen) == 27, f"{len(types_seen)} op types checked")
+
+
+# ------------------------------------------------------------ CRNN
+# Shi, Bai and Yao, "An End-to-End Trainable Neural Network for
+# Image-based Sequence Recognition" (arXiv:1507.05717), Table 1: gray
+# 1x32x100 images, seven convolutions (the last 2x2 without padding),
+# BatchNorm after the fifth and sixth, pools 2x2/2 twice then (2, 2)
+# stride (2, 1) padding (0, 1) twice, so the map is 512x1x26 (T = 26);
+# two bidirectional LSTMs of 256, a projection onto 36 alphanumerics and
+# the blank; CTC; Adadelta (rho 0.9, lr 1.0, section 3.3); batch 256 as
+# PaddleOCR's CTC recognizers train a card.
+CRNN = dict(channels=(64, 128, 256, 256, 512, 512, 512), hidden=256,
+            classes=37, height=32, width=100, batch=256, min_len=3,
+            max_len=12, rho=0.9, epsilon=1e-6, lr=1.0)
+CRNN_LOSS_RTOL = 1e-4        # card against CPU, first step
+# each gradient and update of its norm: cuDNN's fp32 convolutions sum in
+# other orders than the CPU's, and the batch norms amplify it; the first
+# convolution's gradient and update read 1.8e-3 and 3.3e-3 on an H100,
+# so the bound leaves 3x over the worst
+CRNN_GRAD_TOL = 1e-2
+CRNN_UPDATE_TOL = 1e-2
+# the step's device time by aten op family (device_us_by_family)
+CRNN_FAMILIES = {"conv": ("convolution",), "lstm": ("lstm", "_cudnn_rnn"),
+                 "ctc": ("ctc",), "linear": ("linear", "mm", "matmul"),
+                 "batch_norm": ("batch_norm",),
+                 "pool": ("max_pool",)}
+
+
+def crnn_model(nn, api, channels=CRNN["channels"], hidden=CRNN["hidden"],
+               classes=CRNN["classes"]):
+    """The CRNN of Table 1 as a user writes it against ``nn`` (either
+    package's): its forward takes gray images [B, 1, 32, W] and gives
+    the per-column class scores [B, T, classes] (raw; CTC applies the
+    softmax). A convolution followed by BatchNorm has no bias (the norm
+    cancels it). ``api`` supplies squeeze and transpose
+    (port_crnn_api)."""
+    c = channels
+
+    def conv(cin, cout, k=3, pad=1, bn=False):
+        layers = [nn.Conv2D(cin, cout, k, padding=pad,
+                            bias_attr=False if bn else None)]
+        if bn:
+            layers.append(nn.BatchNorm2D(cout))
+        return layers + [nn.ReLU()]
+
+    class CRNN_(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.cnn = nn.Sequential(
+                *conv(1, c[0]), nn.MaxPool2D(2, 2),
+                *conv(c[0], c[1]), nn.MaxPool2D(2, 2),
+                *conv(c[1], c[2]), *conv(c[2], c[3]),
+                nn.MaxPool2D((2, 2), (2, 1), (0, 1)),
+                *conv(c[3], c[4], bn=True), *conv(c[4], c[5], bn=True),
+                nn.MaxPool2D((2, 2), (2, 1), (0, 1)),
+                *conv(c[5], c[6], k=2, pad=0))
+            self.rnn = nn.LSTM(c[6], hidden, num_layers=2,
+                               direction="bidirectional")
+            self.fc = nn.Linear(2 * hidden, classes)
+
+        def forward(self, img):
+            feat = api.squeeze(self.cnn(img), axis=[2])       # [B, C, T]
+            seq, _ = self.rnn(api.transpose(feat, [0, 2, 1]))
+            return self.fc(seq)
+
+    return CRNN_()
+
+
+def port_crnn_api():
+    """The port's surface as the CRNN script takes it (the CPU test hands
+    it the JAX package's)."""
+    import types
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.dygraph.tracer import trace_op
+    from paddle_tpu_torch.optimizer import Adadelta
+    return types.SimpleNamespace(
+        nn=nn, Adadelta=Adadelta, squeeze=pt.squeeze, full=pt.full,
+        argmax=pt.argmax, to_tensor=pt.to_tensor, trace_op=trace_op,
+        transpose=lambda x, perm: x.permute(perm))
+
+
+def crnn_batch(rs, batch, cfg=CRNN):
+    """A seeded batch: gray images [B, 1, 32, W] of noise, labels [B,
+    max_len] of ids 1-36 (0, the blank, pads) with lengths min_len to
+    max_len, each of which fits T with its repeats (checked)."""
+    t = cfg["width"] // 4 + 1
+    imgs = rs.uniform(-1.0, 1.0, (batch, 1, cfg["height"], cfg["width"])) \
+        .astype(np.float32)
+    lens = rs.randint(cfg["min_len"], cfg["max_len"] + 1, batch)
+    labels = np.zeros((batch, cfg["max_len"]), np.int64)
+    for i, n in enumerate(lens):
+        labels[i, :n] = rs.randint(1, cfg["classes"], n)
+        need = n + int((labels[i, 1:n] == labels[i, :n - 1]).sum())
+        check(need <= t, f"label {i} needs {need} steps of {t}")
+    return imgs, labels, lens.astype(np.int64)
+
+
+def crnn_opt(api, model, cfg=CRNN):
+    return api.Adadelta(learning_rate=cfg["lr"], rho=cfg["rho"],
+                        epsilon=cfg["epsilon"],
+                        parameters=model.parameters())
+
+
+def crnn_step(api, model, loss_fn, opt, imgs, labels, lens, grads_of=None):
+    """One training step of the user script: forward, CTC over every
+    column (input lengths T), backward, the Adadelta update. With
+    ``grads_of`` (a dict), each parameter's gradient before the update
+    goes into it by name. Returns the loss."""
+    logits = model(imgs)
+    b, t = logits.shape[0], logits.shape[1]
+    loss = loss_fn(logits, labels, api.full([b], t, dtype="int64"), lens)
+    loss.backward()
+    if grads_of is not None:
+        for name, p in model.named_parameters():
+            grads_of[name] = np.asarray(p.gradient())
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def crnn_decode(api, logits, labels, lens):
+    """Greedy CTC decode and its metric through the eager op entry:
+    argmax over the classes, ctc_align (InputLength T), edit_distance
+    (HypsLength / RefsLength, normalized). Returns (decoded ids [B, T],
+    their lengths [B, 1], normalized distances [B, 1])."""
+    ids = api.argmax(logits, axis=-1)
+    b, t = ids.shape[0], ids.shape[1]
+    out, out_len = api.trace_op(
+        "ctc_align", {"Input": [ids],
+                      "InputLength": [api.full([b, 1], t, dtype="int64")]},
+        {"blank": 0, "padding_value": 0}, out_slots=["Output",
+                                                     "OutputLength"])
+    dist = api.trace_op(
+        "edit_distance", {"Hyps": [out], "Refs": [labels],
+                          "HypsLength": [out_len], "RefsLength": [lens]},
+        {"normalized": True}, out_slots=["Out"])[0]
+    return out, out_len, dist
+
+
+def crnn_label_bias(rs, labels, lens, t, classes):
+    """A seeded bias [B, T, classes] that steers greedy decoding toward
+    each label, so a decode of the biased logits keeps characters,
+    merges repeats and misses some: label character j gets a weight of
+    0.5-2 at column 2j; column 2j + 1 repeats it with probability 0.4
+    (merged by ctc_align) or holds a random character with probability
+    0.1 (an insertion). Scaled by the logits' range, a weight over 1
+    always wins its column, one under 1 may lose it to the blank."""
+    check(2 * max(lens) <= t, f"labels of {max(lens)} need {2 * max(lens)} "
+                              f"columns of {t}")
+    bias = np.zeros((len(labels), t, classes), np.float32)
+    for i, n in enumerate(lens):
+        for j in range(n):
+            bias[i, 2 * j, labels[i, j]] = rs.uniform(0.5, 2.0)
+            u = rs.rand()
+            if u < 0.4:
+                bias[i, 2 * j + 1, labels[i, j]] = rs.uniform(0.5, 2.0)
+            elif u < 0.5:
+                bias[i, 2 * j + 1, rs.randint(1, classes)] = \
+                    rs.uniform(0.5, 2.0)
+    return bias
+
+
+def crnn_conv_flops(cfg=CRNN):
+    """Multiply-adds x 2 of the convolutions for one image, forward."""
+    h, w, cin, total = cfg["height"], cfg["width"], 1, 0
+    for i, cout in enumerate(cfg["channels"]):
+        k = 2 if i == 6 else 3
+        oh, ow = (h - 1, w - 1) if i == 6 else (h, w)
+        total += 2 * oh * ow * cout * cin * k * k
+        h, w, cin = oh, ow, cout
+        if i in (0, 1):
+            h, w = h // 2, w // 2
+        elif i in (3, 5):
+            h, w = h // 2, w + 1
+    return total
+
+
+def _crnn_setup(tpt, device, state, cfg=CRNN):
+    from paddle_tpu_torch.convert import load_state_dict
+    api = port_crnn_api()
+    tpt.set_device(device)
+    model = crnn_model(api.nn, api, cfg["channels"], cfg["hidden"],
+                       cfg["classes"])
+    load_state_dict(model, state)
+    return api, model, api.nn.CTCLoss(blank=0), crnn_opt(api, model, cfg)
+
+
+def phase_crnn(tpt, dev):
+    """The main path of the decoding slice: the CRNN text recognizer of
+    Table 1 (crnn_model: 1x32x100 gray images, seven convolutions,
+    BatchNorm after the fifth and sixth, two bidirectional LSTMs of 256,
+    37 classes), trained eagerly with nn.CTCLoss and Adadelta(rho 0.9,
+    lr 1.0) on seeded images and labels of 3-12 characters, fp32, TF32
+    off, cudnn.benchmark on. Card against CPU at batch 32, one step from
+    the same weights: the loss within 1e-4 relative, each gradient and
+    update within 1e-2 of its norm. Then batch 256: 3 warm-up and 20
+    timed steps (step_ms, images/s, peak memory), one profiled step's
+    launches, host syncs, device busy and idle, and another step's
+    device time by op family (the convolutions' FLOPs over their own
+    device time). Then a held-out batch: greedy decode (argmax,
+    ctc_align) and normalized edit distance through the eager op entry,
+    of the network's logits and of the same with crnn_label_bias (which
+    keeps characters, merges repeats and misses some), the decoded ids,
+    lengths and distances equal on the card and the CPU from the same
+    logits; the mean distance and the share of exact matches."""
+    cfg = CRNN
+    torch.backends.cudnn.benchmark = True
+    tpt.set_device("cpu")
+    tpt.seed(0)
+    api = port_crnn_api()
+    start = crnn_model(api.nn, api, cfg["channels"], cfg["hidden"],
+                       cfg["classes"])
+    state = {k: v.detach().numpy().copy()
+             for k, v in start.state_dict().items()}
+    n_params = sum(p.numel() for p in start.parameters())
+    del start
+    rs = np.random.RandomState(0)
+    small = crnn_batch(rs, 32, cfg)
+    got = []
+    for device in ("cpu", dev):
+        api, model, loss_fn, opt = _crnn_setup(tpt, device, state, cfg)
+        grads = {}
+        t0 = time.perf_counter()
+        loss = crnn_step(api, model, loss_fn, opt,
+                         *[torch.from_numpy(v).to(device) for v in small],
+                         grads_of=grads)
+        after = {k: v.detach().cpu().numpy()
+                 for k, v in model.state_dict().items()}
+        got.append((float(loss.detach()), grads, after,
+                    time.perf_counter() - t0))
+        del model, opt
+    (cl, cg, cp, cpu_s), (gl, gg, gp, _) = got
+    loss_err = abs(gl - cl) / abs(cl)
+    gerrs = {n: float(np.linalg.norm(gg[n] - cg[n]) /
+                      max(np.linalg.norm(cg[n]), 1e-30)) for n in cg}
+    uerrs = update_errors({n: gp[n] for n in cg}, {n: cp[n] for n in cg},
+                          state)
+    gw, uw = max(gerrs, key=gerrs.get), max(uerrs, key=uerrs.get)
+    print(f"[crnn] CRNN (arXiv:1507.05717 Table 1, {n_params:,} parameters)"
+          f", batch 32, first step from the same weights: loss card {gl!r} "
+          f"cpu {cl!r}, rel err {loss_err:.3e} (bound {CRNN_LOSS_RTOL:g}); "
+          f"worst gradient error {gerrs[gw]:.3e} ({gw}, bound "
+          f"{CRNN_GRAD_TOL:g}); worst update error {uerrs[uw]:.3e} ({uw}, "
+          f"bound {CRNN_UPDATE_TOL:g}); the CPU step took {cpu_s:.2f} s")
+    check(loss_err <= CRNN_LOSS_RTOL, "card loss disagrees with the CPU")
+    check(gerrs[gw] <= CRNN_GRAD_TOL, "card gradients disagree")
+    check(uerrs[uw] <= CRNN_UPDATE_TOL, "card updates disagree")
+
+    # batch 256 on the card
+    api, model, loss_fn, opt = _crnn_setup(tpt, dev, state, cfg)
+    batches = [[torch.from_numpy(v).to(dev) for v in crnn_batch(
+        np.random.RandomState(s), cfg["batch"], cfg)] for s in (1, 2)]
+    losses, it = [], iter(range(10 ** 6))
+
+    def step():
+        losses.append(crnn_step(api, model, loss_fn, opt,
+                                *batches[next(it) % 2]).detach())
+
+    times = _timed_steps(step, 3, 20)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_call(step)
+    fams = {k: v / 1e3 for k, v in device_us_by_family(step, CRNN_FAMILIES)
+            .items()}
+    check(all(math.isfinite(float(v)) for v in losses), "a loss is not finite")
+    med = sorted(times)[len(times) // 2]
+    flops = 3 * crnn_conv_flops(cfg) * cfg["batch"]
+    print(f"[crnn] batch {cfg['batch']}: step_ms median {med:.3f} range "
+          f"{min(times):.3f}-{max(times):.3f} over {len(times)} steps (3 "
+          f"warm-up), images/s {cfg['batch'] / med * 1e3:.1f}, peak memory "
+          f"{peak:.2f} GiB, losses {float(losses[0]):.4f} -> "
+          f"{float(losses[-1]):.4f}; one profiled step {prof['wall_ms']:.3f} "
+          f"ms: launches {prof['launches']}, host syncs {prof['syncs']}, "
+          f"device busy {prof['busy_ms']:.3f} ms, idle share "
+          f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}; top kernels "
+          + ", ".join(f"{k[:50]} {v:.3f}" for k, v in prof["top_kernels"])
+          + f"; {card_line()}")
+    print(f"[crnn] device ms of another step by op family (forward and "
+          f"backward): " + ", ".join(f"{k} {v:.3f}" for k, v in fams.items())
+          + f"; the convolutions' {flops / 1e12:.4f} TFLOP (3x the "
+          f"forward's {crnn_conv_flops(cfg):,} FLOPs an image) run at "
+          f"{flops / fams['conv'] / 1e9:.2f} TFLOP/s of their own device "
+          f"time (fp32 peak 67, TF32 off); {card_line()}")
+
+    # greedy decode of a held-out batch, card against CPU on the same
+    # logits: the network's own, and the same with crnn_label_bias, since
+    # a net trained a few steps on noise decodes every column to the blank
+    rs = np.random.RandomState(3)
+    imgs, labels, lens = crnn_batch(rs, cfg["batch"], cfg)
+    model.eval()
+    with tpt.dygraph.no_grad():
+        logits = model(torch.from_numpy(imgs).to(dev))
+    bias = crnn_label_bias(rs, labels, lens, logits.shape[1], cfg["classes"])
+    biased = logits + (logits.max() - logits.min()) * torch.from_numpy(
+        bias).to(dev)
+    for name, lg in (("network", logits), ("label-biased", biased)):
+        dec = []
+        for device in (dev, "cpu"):
+            tpt.set_device(device)
+            dec.append([v.cpu() for v in crnn_decode(
+                api, lg.to(device), torch.from_numpy(labels).to(device),
+                torch.from_numpy(lens).to(device))])
+        tpt.set_device(dev)
+        same = all(torch.equal(a, b) for a, b in zip(*dec))
+        ids = lg.argmax(-1).cpu()
+        merged = int(((ids[:, 1:] == ids[:, :-1]) & (ids[:, 1:] != 0)).sum())
+        kept, dist = dec[1][1].numpy().ravel(), dec[1][2].numpy().ravel()
+        print(f"[crnn] held-out batch of {cfg['batch']}, {name} logits: "
+              f"greedy decode (argmax, ctc_align) and edit_distance through "
+              f"trace_op, card against CPU on the same logits: ids, lengths "
+              f"and distances {'equal' if same else 'DIFFER'}; repeats "
+              f"merged {merged}, characters kept {int(kept.sum())}, mean "
+              f"normalized edit distance {dist.mean():.4f}, exact matches "
+              f"{(dist == 0).mean():.4f}"
+              + (f" (random weights after {len(losses)} steps on 2 batches "
+                 f"of noise)" if name == "network" else ""))
+        check(same, f"greedy decode of the {name} logits differs on the card")
+    check(merged > 0 and (kept > 0).mean() > 0.5 and 0 < dist.mean() < 1,
+          "the label-biased decode merges no repeat, keeps no character in "
+          "most rows, or is all right or all wrong")
+    del model, opt
+    torch.cuda.empty_cache()
+    return med
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5815,6 +6263,8 @@ def main():
     phase_seq_ops(dev)
     phase_rnnlm_eager(tpt, dev)
     phase_sentiment_lstm(tpt, dev)
+    phase_decode_ops(dev)
+    phase_crnn(tpt, dev)
     # fp32 rows: launches on the O1 path (phase bert), beside those of the
     # eager path (phase eager_bert); bf16 rows: on the O2 path (phase
     # bert_o2); fp16 rows: in the fp16 eager loop of phase tiny_o2 (no

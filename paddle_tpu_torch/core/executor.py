@@ -459,8 +459,9 @@ class Executor:
         eager = an.eager or check or not use_program_cache or \
             not flags.get_flag("executor_cache_programs") or bool(feed_lods)
         with torch.no_grad(), rng.step_scope(self._step), op_device(dev), \
-                program_ctx(program), (lodctx.lod_scope(feed_lods) if eager
-                                       else contextlib.nullcontext()):
+                program_ctx(program), (
+                    lodctx.lod_scope(feed_lods) if eager
+                    else contextlib.nullcontext({})) as lods:
             for idx, op in enumerate(block.ops):
                 if idx not in an.live:
                     continue
@@ -482,7 +483,9 @@ class Executor:
         fetches = [env[n].detach() for n in fetch_names]
         if return_numpy:
             return [_to_numpy(v) for v in fetches]
-        return [TpuTensor(v) for v in fetches]
+        # an eager run's fetches keep the LoD their ops declared
+        return [TpuTensor(v, lods.get(n)) for n, v in zip(fetch_names,
+                                                          fetches)]
 
     # -- internals --
     def _analysis(self, program, block, feed_vals, fetch_names,

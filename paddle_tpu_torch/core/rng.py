@@ -98,6 +98,15 @@ def random_generator(seed: int, device="cpu") -> torch.Generator:
     return gen
 
 
+def seeded_generator(seed: int, device="cpu") -> torch.Generator:
+    """A generator of its own seeded with ``seed`` (mod 2**63), for an
+    op that seeds itself as the reference seeds its key (a Seed input,
+    or an attr plus the op's call count)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) % (2 ** 63))
+    return gen
+
+
 def op_generator(seed: int, device) -> torch.Generator:
     """Generator for a random op (dropout). A nonzero ``seed`` attr gives
     the op a stream of its own; 0 draws a fresh seed from the global

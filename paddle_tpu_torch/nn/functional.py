@@ -5,8 +5,6 @@ through ``trace_op`` into the op registry, so the AMP casts apply
 exactly as in the reference; ``interpolate``, ``smooth_l1_loss`` and
 ``cosine_similarity``, which the reference runs through
 ``trace_with_fn`` and not the registry, are torch code here.
-``ctc_loss`` needs the ``warpctc`` op (ROADMAP Queue 1 item 4e-ii) and
-raises.
 """
 from __future__ import annotations
 
@@ -15,7 +13,6 @@ from typing import Optional, Sequence  # noqa: F401  (reference's names)
 import numpy as np
 import torch
 
-from ..core.enforce import UnimplementedError
 from ..dygraph.tracer import trace_op
 from ..dygraph.varbase import to_variable
 
@@ -522,9 +519,18 @@ def margin_ranking_loss(input, other, label, margin=0.0,
 
 def ctc_loss(log_probs, labels, input_lengths=None, label_lengths=None,
              blank=0, reduction="mean", norm_by_times=False):
-    raise UnimplementedError(
-        "nn.functional.ctc_loss needs the warpctc op: ROADMAP Queue 1 "
-        "item 4e-ii")
+    """log_probs [B, T, C] raw logits (warpctc applies the softmax);
+    ``mean`` is the plain mean of the [B, 1] losses, as the reference's
+    ``_reduce_loss``."""
+    ins = {"Logits": [_v(log_probs)], "Label": [_v(labels)]}
+    if input_lengths is not None:
+        ins["LogitsLength"] = [_v(input_lengths)]
+    if label_lengths is not None:
+        ins["LabelLength"] = [_v(label_lengths)]
+    out = trace_op("warpctc", ins,
+                   {"blank": int(blank), "norm_by_times": norm_by_times},
+                   out_slots=["Loss"])[0]
+    return _reduce(out, reduction)
 
 
 def cosine_similarity(x1, x2, axis=1, eps=1e-8):

@@ -7,8 +7,7 @@ pooling.py MaxUnPool2D, loss.py KLDivLoss / NLLLoss / BCELoss /
 SmoothL1Loss / MarginRankingLoss, rnn.py LSTMCell / GRUCell, distance.py
 PairwiseDistance, common.py CosineSimilarity). The cells run one step of
 the reference's ``rnn_scan`` cell as torch code, with its packed
-weights and gate order. ``CTCLoss`` needs the ``warpctc`` op, ROADMAP
-Queue 1 item 4e-ii, and raises.
+weights and gate order.
 """
 from __future__ import annotations
 
@@ -17,7 +16,6 @@ import math
 import torch
 
 from ..core import rng
-from ..core.enforce import UnimplementedError
 from ..dygraph.layers import Layer
 from ..dygraph.tracer import trace_op
 from . import functional as F
@@ -253,8 +251,14 @@ class MarginRankingLoss(Layer):
 
 class CTCLoss(Layer):
     def __init__(self, blank=0, reduction="mean"):
-        raise UnimplementedError(
-            "nn.CTCLoss needs the warpctc op: ROADMAP Queue 1 item 4e-ii")
+        super().__init__()
+        self._cfg = (blank, reduction)
+
+    def forward(self, log_probs, labels, input_lengths=None,
+                label_lengths=None):
+        blank, red = self._cfg
+        return F.ctc_loss(log_probs, labels, input_lengths,
+                          label_lengths, blank, red)
 
 
 class CosineSimilarity(Layer):

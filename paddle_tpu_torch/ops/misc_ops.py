@@ -2,9 +2,7 @@
 sampled softmax, im2sequence, correlation, host-side utility ops and
 composition aliases.
 
-Port of ``paddle_tpu/ops/misc_ops.py`` but ``deformable_conv_v1``, which
-calls ``deformable_conv`` of ``long_tail_ops.py`` and waits for ROADMAP
-Queue 1 item 4e. Notes:
+Port of ``paddle_tpu/ops/misc_ops.py``. Notes:
 
 - ``cudnn_lstm`` runs torch's own LSTM (cuDNN on the card) on the
   reference's structured WeightList ([Wx, Wh, B] a layer and direction,
@@ -15,10 +13,10 @@ Queue 1 item 4e. Notes:
 - ``save``, ``load``, ``save_combine`` and ``load_combine`` read and
   write the reference's files: ``np.save`` / ``np.savez`` of the host
   arrays.
-- ``shuffle_batch`` and ``sample_logits`` draw from torch generators
-  seeded as the reference seeds its keys (a Seed input, read on the
-  host, else the seed attr plus the op's call count): torch's numbers,
-  not threefry's.
+- ``shuffle_batch`` and ``sample_logits`` draw from ``core/rng``'s
+  seeded generators, seeded as the reference seeds its keys (a Seed
+  input, read on the host, else the seed attr plus the op's call
+  count): torch's numbers, not threefry's.
 - ``run_program`` runs its sub-program through a fresh port Executor
   and Scope on the inputs' device.
 - ``py_func``, ``print``, ``filter_by_instag`` and the IO ops read
@@ -34,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core import dtype as dtypes
+from ..core import dtype as dtypes, rng
 from ..core.enforce import InvalidArgumentError, enforce, host_only
 from ..core.registry import OpInfoMap, register_op
 from ..device import creation_device
@@ -195,12 +193,6 @@ def _seed_of(inputs, attrs, attr, tag):
     return int(attrs.get(attr, 0)) + next_call(tag)
 
 
-def _generator(seed):
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(seed % (2 ** 63))
-    return gen
-
-
 @register_op("shuffle_batch", intermediate_outputs=("ShuffleIdx",
                                                     "SeedOut"),
              non_differentiable_inputs=("Seed",))
@@ -210,8 +202,8 @@ def shuffle_batch(inputs, attrs):
     x = inputs["X"][0]
     seed = _seed_of(inputs, attrs, "startup_seed", "shuffle_batch") \
         % (2 ** 32)
-    perm = torch.randperm(x.shape[0], generator=_generator(seed)).to(
-        x.device)
+    perm = torch.randperm(x.shape[0],
+                          generator=rng.seeded_generator(seed)).to(x.device)
     return {"Out": [x.index_select(0, perm)], "ShuffleIdx": [perm],
             "SeedOut": [torch.full((1,), seed + 1, dtype=torch.int64,
                                    device=x.device)]}
@@ -264,7 +256,8 @@ def sample_logits(inputs, attrs):
         probs = inputs["CustomizedProbabilities"][0]
     else:
         seed = _seed_of(inputs, attrs, "seed", "sample_logits") % (2 ** 32)
-        neg = torch.randint(0, k, (n, s), generator=_generator(seed)).to(
+        neg = torch.randint(0, k, (n, s),
+                            generator=rng.seeded_generator(seed)).to(
             logits.device)
         samples = torch.cat([labels, neg], 1)
         probs = torch.full((n, nt + s), 1.0 / k, dtype=logits.dtype,
@@ -422,6 +415,15 @@ def load_combine(inputs, attrs):
 
 
 # --------------------------------------------------- composition aliases
+@register_op("deformable_conv_v1")
+def deformable_conv_v1(inputs, attrs):
+    """ref: operators/deformable_conv_v1_op.cc — ``deformable_conv``
+    without the modulation mask."""
+    inner = dict(inputs)
+    inner.pop("Mask", None)
+    return OpInfoMap.instance().get("deformable_conv").compute(inner, attrs)
+
+
 @register_op("inplace_abn",
              intermediate_outputs=("MeanOut", "VarianceOut", "SavedMean",
                                    "SavedVariance", "ReserveSpace"),

@@ -1,8 +1,6 @@
 """The parity tranche: ``paddle_tpu/ops/parity_ops.py``.
 
-Port of that module's op types but ``fusion_seqpool_cvm_concat``, which
-calls ``fusion_seqpool_concat`` of ``fusion_ops.py`` and waits for
-ROADMAP Queue 1 item 4e: trivial tensor ops, ``fc``, ``feed`` and
+Port of that module's op types: trivial tensor ops, ``fc``, ``feed`` and
 ``fetch``, control and LoD glue, fused-op compositions, text-matching
 ops, the TDM tree ops and the fake-quant variants. The glue types that
 wrap control-flow and array ops (``while``, ``conditional_block_infer``,
@@ -598,6 +596,20 @@ def fused_fc_elementwise_layernorm(inputs, attrs):
         norm = norm + inputs["Bias1"][0]
     return {"Out": [norm], "Mean": [mean[..., 0]],
             "Variance": [var[..., 0]]}
+
+
+@register_op("fusion_seqpool_cvm_concat",
+             non_differentiable_inputs=("CVM", "Length"))
+def fusion_seqpool_cvm_concat(inputs, attrs):
+    """ref: operators/fused/fusion_seqpool_cvm_concat_op.cc — each input
+    sequence-pooled and concatenated (``fusion_seqpool_concat``), then
+    the ``cvm`` transform."""
+    pooled = _op("fusion_seqpool_concat")(
+        {"X": inputs["X"], "Length": inputs.get("Length", [])},
+        attrs)["Out"][0]
+    return {"Out": [_op("cvm")(
+        {"X": [pooled]},
+        {"use_cvm": bool(attrs.get("use_cvm", True))})["Y"][0]]}
 
 
 @register_op("fusion_transpose_flatten_concat")

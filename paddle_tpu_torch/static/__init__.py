@@ -21,7 +21,10 @@ The control-flow builders (``control_flow.py``), the comparison and
 ``increment`` builders, the tensor-array surface and the step
 extractors of the module-parity builders, the recurrent builders
 (``dynamic_lstm``, ``dynamic_gru``, ``row_conv``) and ``dynamic_lstmp``,
-``gru_unit``, ``lstm`` / ``lstm_unit`` of the RNN builders are ported.
+``gru_unit``, ``lstm`` / ``lstm_unit`` of the RNN builders are ported,
+and the decode builders: ``crf_decoding`` (reusing the CRF transition),
+``beam_search`` and ``beam_search_decode``, which replace their table
+forms as in the JAX package.
 Not ported yet: ``CompiledProgram``, static AMP, ``nets``, the rest of
 the RNN, SSD and module-parity builders and the later tables' other
 builders (ROADMAP Queue 1, item 5).
@@ -1194,12 +1197,8 @@ def _make_simple_layer(lname, op_type, arg_slots, out_slots, defaults):
     return staticmethod(builder)
 
 
-# builders the JAX package overrides with parameterized ones not ported
-# yet: their table forms would build a different graph
-_NOT_PORTED = {"crf_decoding", "beam_search"}
-
 for _lname, (_otype, _slots, _osl, _defs) in _SIMPLE_LAYERS.items():
-    if not hasattr(nn, _lname) and _lname not in _NOT_PORTED:
+    if not hasattr(nn, _lname):
         setattr(nn, _lname, _make_simple_layer(_lname, _otype, _slots,
                                                _osl, _defs))
 
@@ -1328,6 +1327,7 @@ _recurrent_builders()
 # _SIMPLE_LAYERS_2-4), for the ops the port registers; the rest come
 # with their ops.
 _SIMPLE_LAYERS_2 = {
+    "logical_not": ("logical_not", [("x", "X")], ["Out"], {}),
     "mul": ("mul", [("x", "X"), ("y", "Y")], ["Out"],
             {"x_num_col_dims": 1, "y_num_col_dims": 1}),
     "roi_align": ("roi_align", [("input", "X"), ("rois", "ROIs")],
@@ -1339,6 +1339,10 @@ _SIMPLE_LAYERS_2 = {
                       [("input", "X"), ("length", "Length")], ["Out"],
                       {"pooltype": "SUM"}),
     "sums": ("sum", [("input", "X*")], ["Out"], {}),
+    # fluid contract: lod_reset returns ONE var (the data with new lod);
+    # OutLength is internal dense-convention plumbing
+    "lod_reset": ("lod_reset", [("x", "X"), ("y", "Y")],
+                  ["Out"], {}),
     "yolov3_loss": ("yolov3_loss",
                     [("x", "X"), ("gt_box", "GTBox"),
                      ("gt_label", "GTLabel")], ["Loss"],
@@ -1657,3 +1661,75 @@ def _lstm_builders():
 
 
 _lstm_builders()
+
+
+def _decode_builders():
+    """``crf_decoding``, the form that reuses the linear-chain CRF's
+    transition parameter (ParamAttr name sharing), and ``beam_search`` /
+    ``beam_search_decode`` with the reference's signatures
+    (layers/rnn.py); each replaces its simple-layer table form, as in
+    the JAX package."""
+
+    def crf_decoding(input, param_attr=None, label=None, length=None,
+                     transition=None):
+        """ref: nn.py crf_decoding — Viterbi decode reusing the
+        linear_chain_crf transition param (ParamAttr name sharing)."""
+        num_tags = int(input.shape[-1])
+        trans = transition if transition is not None else create_parameter(
+            [num_tags + 2, num_tags], "float32", attr=param_attr)
+        block = input.block
+        path = _new_tmp(block, "crf_path")
+        ins = {"Emission": [input.name], "Transition": [trans.name]}
+        if label is not None:
+            ins["Label"] = [label.name]
+        if length is not None:
+            ins["Length"] = [length.name]
+        else:
+            comp = getattr(input, "lod_companion", None)
+            if comp:
+                ins["Length"] = [comp]
+        _op(block, "crf_decoding", ins, {"ViterbiPath": [path.name]}, {})
+        comp = getattr(input, "lod_companion", None)
+        if comp:
+            path.lod_companion = comp
+        return path
+
+    def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                    level=0, is_accumulated=True, name=None,
+                    return_parent_idx=False):
+        """ref: layers/rnn.py beam_search — one step; returns
+        (selected_ids, selected_scores), and parent_idx when asked."""
+        block = pre_ids.block
+        sid = _new_tmp(block, name or "bs_ids")
+        ssc = _new_tmp(block, "bs_scores")
+        pidx = _new_tmp(block, "bs_parent")
+        ins = {"pre_ids": [pre_ids.name], "pre_scores": [pre_scores.name],
+               "scores": [scores.name]}
+        if ids is not None:
+            ins["ids"] = [ids.name]
+        _op(block, "beam_search", ins,
+            {"selected_ids": [sid.name], "selected_scores": [ssc.name],
+             "parent_idx": [pidx.name]},
+            {"beam_size": int(beam_size), "end_id": int(end_id),
+             "level": int(level), "is_accumulated": bool(is_accumulated)})
+        if return_parent_idx:
+            return sid, ssc, pidx
+        return sid, ssc
+
+    def beam_search_decode(ids, scores, beam_size, end_id, name=None):
+        """ref: layers/rnn.py beam_search_decode."""
+        block = ids.block
+        out_ids = _new_tmp(block, name or "bsd_ids")
+        out_scores = _new_tmp(block, "bsd_scores")
+        _op(block, "beam_search_decode",
+            {"Ids": [ids.name], "Scores": [scores.name]},
+            {"SentenceIds": [out_ids.name],
+             "SentenceScores": [out_scores.name]},
+            {"beam_size": beam_size, "end_id": end_id})
+        return out_ids, out_scores
+
+    for fn in (crf_decoding, beam_search, beam_search_decode):
+        setattr(nn, fn.__name__, staticmethod(fn))
+
+
+_decode_builders()

@@ -10,8 +10,8 @@ built into its own ``build/``. PHASE is one of ``bert`` (phase bert, then
 one O1 step under the profiler: launches, host syncs, device busy),
 ``bert_o2``, ``eager_bert``, ``tensor_api``, ``nn_api``, ``nn_layers``,
 ``cyclegan``, ``cf_api``, ``control_flow``, ``ptb_lm``, ``seq_ops``,
-``rnnlm_eager``, ``sentiment_lstm`` and ``fp16`` (phase timing at
-fp16). To compare two commits on one card, run them in turns in one
+``rnnlm_eager``, ``sentiment_lstm``, ``decode_ops``, ``crnn`` and
+``fp16`` (phase timing at fp16). To compare two commits on one card, run them in turns in one
 call, one process each, e.g. parent, change, change, parent.
 """
 import os
@@ -89,6 +89,10 @@ def main():
             cs.phase_rnnlm_eager(tpt, dev)
         elif ph == "sentiment_lstm":
             cs.phase_sentiment_lstm(tpt, dev)
+        elif ph == "decode_ops":
+            cs.phase_decode_ops(dev)
+        elif ph == "crnn":
+            cs.phase_crnn(tpt, dev)
         elif ph == "fp16":
             cs.phase_timing(fa, dev, torch.float16)
         else:

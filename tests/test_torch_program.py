@@ -264,20 +264,27 @@ def test_builder_zoo_infers_the_jax_shapes():
 def test_builder_of_an_op_the_port_lacks_builds_and_raises_at_run():
     """A table builder whose op the port has not registered builds (its
     outputs' VarDescs stay unknown) and raises NotFoundError when run,
-    as the JAX package does for an unregistered op."""
+    as the JAX package does for an unregistered op. Every entry of the
+    first table now has its op, so the builder is made by the tables'
+    own factory over an op of ROADMAP item 4f."""
     from paddle_tpu_torch.core.registry import OpInfoMap
     api = chip_smoke.port_static_api()
-    assert not OpInfoMap.instance().has("warpctc")
+    assert not OpInfoMap.instance().has("generate_proposals")
+    builder = api.static._make_simple_layer(
+        "generate_proposals", "generate_proposals",
+        [("scores", "Scores"), ("bbox_deltas", "BboxDeltas")],
+        ["RpnRois"], {}).__func__
     prog, startup = tpt.Program(), tpt.Program()
     with api.static.program_guard(prog, startup):
         x = api.static.data("x", [2, 5], "float32")
         y = api.static.data("y", [2, 5], "float32")
-        loss = api.static.nn.warpctc(x, y)
-    assert prog.global_block().var(loss.name).shape is None
-    with pytest.raises(tpt.core.enforce.NotFoundError, match="warpctc"):
+        rois = builder(x, y)
+    assert prog.global_block().var(rois.name).shape is None
+    with pytest.raises(tpt.core.enforce.NotFoundError,
+                       match="generate_proposals"):
         tpt.Executor().run(prog, feed={"x": np.ones((2, 5), np.float32),
                                        "y": np.ones((2, 5), np.float32)},
-                           fetch_list=[loss], scope=tpt.Scope())
+                           fetch_list=[rois], scope=tpt.Scope())
 
 
 def test_flash_shape_rule_launches_nothing():

@@ -24,39 +24,37 @@ NO_TWIN = {"dygraph": {"TapeNode", "trace_with_fn"}}
 
 # ROADMAP Queue 1 item 5 (the rest of the static graph): dy2static,
 # CompiledProgram, and the rest of static/__init__.py's builders (their
-# ops come with items 4e-ii, 4f, 5 and 8 where the port lacks them)
+# ops come with items 4f, 5 and 8 where the port lacks them)
 DEFERRED = {
     "dygraph": {"declarative": "item 5", "dygraph_to_static_func": "item 5"},
     "static": dict.fromkeys(
         ("BuildStrategy", "CompiledProgram", "ExecutionStrategy"), "item 5"),
     "static.nn": dict.fromkeys((
         "adaptive_pool2d", "adaptive_pool3d", "add_position_encoding",
-        "autoincreased_step_counter", "beam_search", "beam_search_decode",
-        "bilinear_tensor_product", "birnn", "box_decoder_and_assign",
-        "brelu", "center_loss", "chunk_eval", "collect_fpn_proposals",
-        "continuous_value_model", "conv2d_transpose", "conv3d",
-        "conv3d_transpose", "create_global_var", "create_tensor",
-        "crf_decoding", "cross_entropy2", "data_norm", "deformable_conv",
+        "autoincreased_step_counter", "bilinear_tensor_product", "birnn",
+        "box_decoder_and_assign", "brelu", "center_loss", "chunk_eval",
+        "collect_fpn_proposals", "continuous_value_model", "conv2d_transpose",
+        "conv3d", "conv3d_transpose", "create_global_var", "create_tensor",
+        "cross_entropy2", "data_norm", "deformable_conv",
         "deformable_roi_pooling", "detection_map", "detection_output",
         "dice_loss", "distribute_fpn_proposals", "dynamic_decode", "eye",
-        "fill_constant_batch_size_like", "filter_by_instag",
-        "gaussian_random", "gaussian_random_batch_size_like",
-        "generate_mask_labels", "generate_proposal_labels",
-        "generate_proposals", "get_tensor_from_selected_rows",
-        "group_norm", "hash", "hsigmoid", "im2sequence",
-        "image_resize_short", "inplace_abn", "instance_norm", "layer_norm",
-        "locality_aware_nms", "lod_append", "lod_reset", "logical_and",
-        "logical_not", "logical_or", "logical_xor", "maxout", "mean_iou",
-        "merge_selected_rows", "multi_box_head", "nce", "npair_loss",
-        "ones", "ones_like", "prelu", "prroi_pool", "psroi_pool",
-        "py_func", "random_crop", "range", "rank", "reduce_all",
-        "reduce_any", "resize_linear", "retinanet_detection_output",
+        "fill_constant_batch_size_like", "filter_by_instag", "gaussian_random",
+        "gaussian_random_batch_size_like", "generate_mask_labels",
+        "generate_proposal_labels", "generate_proposals",
+        "get_tensor_from_selected_rows", "group_norm", "hash", "hsigmoid",
+        "im2sequence", "image_resize_short", "inplace_abn", "instance_norm",
+        "layer_norm", "locality_aware_nms", "lod_append", "logical_and",
+        "logical_or", "logical_xor", "maxout", "mean_iou",
+        "merge_selected_rows", "multi_box_head", "nce", "npair_loss", "ones",
+        "ones_like", "prelu", "prroi_pool", "psroi_pool", "py_func",
+        "random_crop", "range", "rank", "reduce_all", "reduce_any",
+        "resize_linear", "retinanet_detection_output",
         "retinanet_target_assign", "rnn", "roi_perspective_transform",
         "roi_pool", "rpn_target_assign", "sampled_softmax_with_cross_entropy",
-        "sampling_id", "scatter_nd", "similarity_focus", "size",
-        "soft_relu", "spectral_norm", "square_error_cost", "ssd_loss",
-        "target_assign", "uniform_random", "uniform_random_batch_size_like",
-        "unique", "unique_with_counts", "zeros", "zeros_like"), "item 5"),
+        "sampling_id", "scatter_nd", "similarity_focus", "size", "soft_relu",
+        "spectral_norm", "square_error_cost", "ssd_loss", "target_assign",
+        "uniform_random", "uniform_random_batch_size_like", "unique",
+        "unique_with_counts", "zeros", "zeros_like"), "item 5"),
 }
 
 # (reference module, port module): static.nn is a namespace class

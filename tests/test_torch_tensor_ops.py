@@ -32,6 +32,7 @@ import paddle_tpu_torch as tpt
 from paddle_tpu_torch.core.registry import OpInfoMap, generic_vjp_grad
 from paddle_tpu_torch.device import op_device
 from paddle_tpu_torch.testing.cf_cases import CF_CASES
+from paddle_tpu_torch.testing.decode_cases import DECODE_TYPES
 from paddle_tpu_torch.testing.nn_cases import NN_CASES
 from paddle_tpu_torch.testing.op_cases import CASES
 from paddle_tpu_torch.testing.seq_cases import SEQ_TYPES
@@ -45,8 +46,9 @@ OTHER = ("paddle_tpu.ops.tensor_ops", "paddle_tpu.ops.parity_ops",
          "paddle_tpu.ops.loss_ops", "paddle_tpu.ops.long_tail_ops")
 PORTED_BEFORE = 75
 # the op types later slices ported, by their case lists (the rest
-# of paddle.nn, then control flow, then sequences)
-LATER = {c.op for c in NN_CASES} | {c.op for c in CF_CASES} | SEQ_TYPES
+# of paddle.nn, then control flow, sequences and decoding)
+LATER = {c.op for c in NN_CASES} | {c.op for c in CF_CASES} | SEQ_TYPES \
+    | DECODE_TYPES
 PARITY_TYPES = {"allclose", "bernoulli", "diag_v2", "empty", "eye",
                 "histogram", "isinf", "isnan", "randperm"}
 

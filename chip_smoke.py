@@ -124,7 +124,8 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      batch: step time, images/s, peak memory, launches and host syncs a
      step; the recompute grad route; the port's dygraph ResNet-50 at O0
      through jit.TrainStep on the same batch beside it; the loss finite
-     and falling, the parameters and BN statistics moved.
+     and falling at each of the first four steps, the parameters and BN
+     statistics moved.
   22. predictor: the classic fluid ResNet-50 (static_resnet, batch -1,
      224 px, 1000 classes, fp32 NCHW, the logits fetched) and the attn
      program (BERT-base's self-attention sublayer, attn_program: x [B, 128,
@@ -218,7 +219,19 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      Adadelta: one batch-32 step card against CPU, 20 timed steps at
      batch 256 (step_ms, images/s, peak memory, launches, host syncs,
      busy and idle), and a held-out batch's greedy decode and edit
-     distance, equal on the card and the CPU.
+     distance, equal on the card and the CPU;
+  38. rcnn_ops: the 15 op types of the two-stage detection slice
+     (rcnn_ops), every case of paddle_tpu_torch/testing/rcnn_cases.py on
+     the card against the CPU, indices and labels equal; host syncs and
+     ms a call of each type's first case;
+  39. faster_rcnn, the main path of that slice: PaddleDetection's fluid
+     Faster R-CNN R50-C4 1x (rcnn_cases.FRCNN: 800 x 1333, 81 classes,
+     512 RoIs, 12,000 / 2,000 proposals) trained through static.Executor:
+     step 1's sampling ops and losses card against CPU, 10 timed steps
+     (step_ms, images/s, peak memory, launches, host syncs, busy and
+     idle, host ms of each rcnn op, device ms by family), then the test
+     forward (proposals, box_coder decode, multiclass_nms,
+     detection_map), timed.
 Phase 3 also times K1-K3 in fp16 at BERT-base.
 The last two lines are the kernels' JSON record (each kernel at fp32,
 its launches from phase 7 and, as launches_eager_bert, from phase 25;
@@ -2846,8 +2859,13 @@ def phase_static_resnet50(tpt, dev):
     check(all(math.isfinite(v) for v in loss_vals), "non-finite loss")
     check(abs(loss_vals[0] - math.log(cfg["class_dim"])) < RESNET_LOSS0_TOL,
           f"first loss {loss_vals[0]} far from ln({cfg['class_dim']})")
-    check(loss_vals[-1] < loss_vals[0],
-          "the loss did not fall over repeated steps on one batch")
+    # at lr 0.1 the loss falls for four steps, then climbs, and the last
+    # steps vary run to run (the 14th 6.03-7.06 over eight runs, once
+    # above the first); the first four fell in all eight (7.0578,
+    # 6.2984, 5.823-5.829, 5.654-5.670): each must fall
+    check(all(b < a for a, b in zip(loss_vals[:3], loss_vals[1:4])),
+          "the loss did not fall at each of the first four steps on one "
+          "batch")
     for n in names:
         moved = not torch.equal(first[n], after[n])
         print(f"[static_resnet50] {n} {'moved' if moved else 'DID NOT MOVE'}")
@@ -6205,6 +6223,312 @@ def phase_crnn(tpt, dev):
     torch.cuda.empty_cache()
     return med
 
+# ------------------------------------------------- two-stage detection
+def host_call_ms(fn, n=5):
+    """Mean wall ms of ``n`` calls of fn, each closed by a device sync,
+    after one call (host-side ops read and wait: the host clock times
+    them whole)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_rcnn_ops(dev):
+    """The 15 op types of the two-stage detection slice (rcnn_ops): every
+    case of rcnn_cases on the card against the port on the CPU, index and
+    label outputs equal, floats at each case's bound; then, for the
+    first case of each type, the host syncs of one call on inputs
+    already on the card and its ms a call (host clock, each call closed
+    by a sync)."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.testing import rcnn_cases as rc
+    worst = {}
+    types_seen = hold_cases(rc.RCNN_CASES, dev, worst)
+    by_type = dict.fromkeys(sorted(types_seen), 0.0)   # integer ones: equal
+    for k, v in worst.items():
+        t = next(c.op for c in rc.RCNN_CASES if k.startswith(c.id + "."))
+        by_type[t] = max(by_type[t], v)
+    first = {}
+    for c in rc.RCNN_CASES:
+        first.setdefault(c.op, c)
+    syncs = case_syncs(rc.RCNN_CASES, [c.id for c in first.values()], dev)
+    ms = {}
+    for op, case in sorted(first.items()):
+        ins = {s: [torch.from_numpy(np.array(v)).to(dev) for v in vs]
+               for s, vs in case.inputs.items()}
+        with case_env(case, dev) as attrs:
+            compute = OpInfoMap.instance().get(op).compute
+            ms[op] = host_call_ms(lambda: compute(ins, dict(attrs)))
+    print(f"[rcnn_ops] {len(rc.RCNN_CASES)} cases of {len(types_seen)} op "
+          f"types on the card against the CPU: all agree; largest float "
+          f"error by type " + ", ".join(f"{k} {v:.2e}"
+                                        for k, v in by_type.items()))
+    print("[rcnn_ops] first case of each type on inputs already on the "
+          "card: host syncs and ms a call: "
+          + ", ".join(f"{op} {syncs[c.id]} / {ms[op]:.3f}"
+                      for op, c in sorted(first.items()))
+          + f"; {card_line()}")
+    check(len(types_seen) == 15, f"{len(types_seen)} op types checked")
+
+
+FRCNN_LOSS_RTOL = 1e-3       # card against CPU, the first step's losses
+FRCNN_FAMILIES = {"conv": ("convolution",), "roi_align": ("op:roi_align",),
+                  "affine_channel": ("op:affine_channel",),
+                  "rcnn_ops": tuple("op:" + t for t in (
+                      "generate_proposals", "rpn_target_assign",
+                      "generate_proposal_labels")),
+                  "momentum": ("op:momentum",)}
+
+
+def _op_io(program, op_type):
+    """The first ``op_type`` op of the program: ({slot: input names},
+    {slot: output names})."""
+    op = next(o for o in program.global_block().ops if o.type == op_type)
+    return ({s: list(v) for s, v in op.inputs.items()},
+            {s: list(v) for s, v in op.outputs.items()})
+
+
+def op_cpu_ms(fn, types):
+    """Host ms inside each op type's "op:<type>" range (op_ranges) over
+    one call of fn: what a host-side op costs the step whole, its reads
+    and waits included."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    torch.cuda.synchronize()
+    with op_ranges(), torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(types, 0.0)
+    for e in prof.events():
+        if e.name.startswith("op:") and e.name[3:] in total:
+            total[e.name[3:]] += (e.time_range.end - e.time_range.start) / 1e3
+    return total
+
+
+def phase_faster_rcnn(tpt, dev, cfg=None):
+    """The main path of the two-stage detection slice: the fluid Faster
+    R-CNN R50-C4 1x of PaddleDetection (rcnn_cases.FRCNN: ResNet-50 to
+    res4 with frozen affine_channel norms, stem and res2 frozen, the RPN
+    head over 15 anchors a cell, rpn_target_assign, generate_proposals
+    (12,000 / 2,000, NMS 0.7), generate_proposal_labels (512 RoIs, 81
+    classes), RoIAlign 14x14, the res5 head, Momentum 0.9 with L2 1e-4 at
+    lr 0.01 / 3) at 800 x 1333, one image, fp32, TF32 off, cudnn.benchmark
+    on, through static.Executor. Step 1 on the card against the CPU:
+    rpn_target_assign's outputs equal on the card's inputs (its anchors
+    come from anchor_generator, its gt is fed), generate_proposals and
+    generate_proposal_labels run on the CPU on the card's own inputs give
+    equal indices and boxes within 1e-5, and the four losses of the CPU's
+    forward from the same weights within FRCNN_LOSS_RTOL. Then 2 warm-up
+    and 10 timed steps on seeded images (step_ms, images/s, peak
+    memory), a profiled step (launches, host syncs, busy and idle), the
+    host ms of each rcnn op inside a step and the device ms by kernel
+    family; then the test-settings forward (proposals 6,000 / 1,000,
+    box_coder decode, multiclass_nms 0.05 / 100 / 0.5, detection_map
+    against the gt), timed."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
+    from paddle_tpu_torch.device import op_device
+    from paddle_tpu_torch.testing import rcnn_cases as rc
+    cfg = cfg or rc.FRCNN
+    api = rc.port_api()
+    tpt.set_device(dev)
+    tpt.seed(0)
+    torch.backends.cudnn.benchmark = True
+    t0 = time.perf_counter()
+    main, startup, names = rc.faster_rcnn_program(api, cfg)
+    build_s = time.perf_counter() - t0
+    exe, scope = api.pt.Executor(), api.pt.Scope()
+    exe.run(startup, scope=scope)
+    params = [n for n in startup.global_block().vars
+              if main.global_block().vars[n].persistable and "@" not in n
+              and not n.startswith("learning_rate")]
+    n_params = sum(scope.find_var(n).get().value.numel() for n in params)
+    start = {n: scope.find_var(n).get().value.detach().cpu() for n in params}
+    feeds = [rc.frcnn_feed(cfg, s) for s in range(4)]
+
+    # step 1, with the sampling ops' inputs and outputs
+    io = {t: _op_io(main, t) for t in ("rpn_target_assign",
+                                       "generate_proposals",
+                                       "generate_proposal_labels")}
+    extra = sorted({n for ins, outs in io.values()
+                    for v in (*ins.values(), *outs.values()) for n in v})
+    losses = [names[k] for k in ("loss", "rpn_cls", "rpn_reg", "rcnn_cls",
+                                 "rcnn_reg")]
+    out = exe.run(main, feed=feeds[0], fetch_list=losses + extra,
+                  scope=scope, return_numpy=False)
+    card = dict(zip(losses + extra, [v.value for v in out]))
+    first = [float(card[n].reshape(-1)[0]) for n in losses]
+    report = {}
+    for t, (ins, outs) in io.items():
+        cpu_in = {s: [card[n].cpu() for n in v] for s, v in ins.items()}
+        op = next(o for o in main.global_block().ops if o.type == t)
+        attrs = {k: v for k, v in op.attrs.items() if not k.startswith("__")}
+        with op_device("cpu"):
+            want = OpInfoMap.instance().get(t).compute(cpu_in, attrs)
+        errs = []
+        for slot, vs in outs.items():
+            for n, w in zip(vs, want[slot]):
+                g = card[n].cpu()
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f"{t}.{slot}: {g.shape} {g.dtype} on the card, "
+                      f"{w.shape} {w.dtype} on the CPU")
+                if w.is_floating_point():
+                    err = (g - w).abs().max().item() if w.numel() else 0.0
+                    errs.append(err)
+                    check(torch.allclose(g, w, rtol=1e-5, atol=1e-5),
+                          f"{t}.{slot} differs on the card: {err:.3e}")
+                else:
+                    check(torch.equal(g, w), f"{t}.{slot} differs on the "
+                                             f"card")
+        report[t] = (max(errs) if errs else 0.0,
+                     {s: tuple(card[v[0]].shape) for s, v in outs.items()})
+    print(f"[faster_rcnn] Faster R-CNN R50-C4 (PaddleDetection "
+          f"faster_rcnn_r50_1x, {n_params:,} parameters, 800 x 1333, 81 "
+          f"classes): program built in {build_s:.2f} s, "
+          f"{len(main.global_block().ops)} ops; step 1 on the card against "
+          f"the CPU on the card's inputs: " + "; ".join(
+              f"{t} indices and labels equal, floats max abs {e:.2e}, "
+              + ", ".join(f"{s} {sh}" for s, sh in shapes.items())
+              for t, (e, shapes) in report.items()))
+
+    # the first step's losses on the CPU from the same weights and image
+    tpt.set_device("cpu")
+    cmain, cstart, cnames = rc.faster_rcnn_program(api, cfg, mode="loss")
+    cscope = api.pt.Scope()
+    for n, v in start.items():
+        cscope.var(n).set(api.pt.TpuTensor(v))
+    t0 = time.perf_counter()
+    cpu = api.pt.Executor("cpu").run(
+        cmain, feed=feeds[0], fetch_list=[cnames[k] for k in (
+            "loss", "rpn_cls", "rpn_reg", "rcnn_cls", "rcnn_reg")],
+        scope=cscope)
+    cpu_s = time.perf_counter() - t0
+    cpu = [float(np.asarray(v).reshape(-1)[0]) for v in cpu]
+    tpt.set_device(dev)
+    rel = [abs(g - c) / max(abs(c), 1e-12) for g, c in zip(first, cpu)]
+    print(f"[faster_rcnn] step 1 losses (total, rpn_cls, rpn_reg, rcnn_cls, "
+          f"rcnn_reg): card {first}, CPU forward {cpu} ({cpu_s:.1f} s), "
+          f"rel err max {max(rel):.3e} (bound {FRCNN_LOSS_RTOL:g})")
+    check(all(math.isfinite(v) for v in first), "a first loss is not finite")
+    check(max(rel) <= FRCNN_LOSS_RTOL, "card losses disagree with the CPU")
+    del cscope, cmain
+
+    # timed steps
+    it = iter(range(10 ** 6))
+    step_losses = []
+
+    def step():
+        v = exe.run(main, feed=feeds[1 + next(it) % 3],
+                    fetch_list=[names["loss"]], scope=scope,
+                    return_numpy=False)[0]
+        step_losses.append(v.value)
+
+    times = _timed_steps(step, 2, 10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_call(step)
+    host = op_cpu_ms(step, ("generate_proposals", "rpn_target_assign",
+                            "generate_proposal_labels", "roi_align",
+                            "anchor_generator"))
+    with op_ranges():
+        fams = {k: v / 1e3 for k, v in device_us_by_family(
+            step, FRCNN_FAMILIES).items()}
+    vals = [float(v.reshape(-1)[0]) for v in step_losses]
+    check(all(math.isfinite(v) for v in vals), "a loss is not finite")
+    med = sorted(times)[len(times) // 2]
+    moved = [n for n in params
+             if not torch.equal(start[n], scope.find_var(n).get().value.cpu())]
+    frozen = ("conv1_weights", "res2a_branch2a_weights", "bn4a_branch2a_scale")
+    print(f"[faster_rcnn] step_ms median {med:.3f} range {min(times):.3f}-"
+          f"{max(times):.3f} over {len(times)} steps (2 warm-up), images/s "
+          f"{1e3 / med:.3f}, peak memory {peak:.2f} GiB, losses "
+          f"{[round(v, 4) for v in vals]}; one profiled step "
+          f"{prof['wall_ms']:.3f} ms: launches {prof['launches']}, host "
+          f"syncs {prof['syncs']}, device busy {prof['busy_ms']:.3f} ms, "
+          f"idle share {1 - prof['busy_ms'] / prof['wall_ms']:.3f}; "
+          f"{len(moved)} of {len(params)} parameters moved; {card_line()}")
+    print("[faster_rcnn] host ms inside each op of another step: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+          + "; device ms by family (forward and backward): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in fams.items()))
+    check("conv_rpn_w" in moved and "cls_score_w" in moved and
+          "res4a_branch2a_weights" in moved and "res5a_branch2a_weights" in
+          moved and not set(frozen) & set(moved),
+          "a trained parameter did not move, or a frozen one did")
+
+    # the test settings' forward
+    tmain, _, tnames = rc.faster_rcnn_program(api, cfg, mode="test")
+    nms_in, _ = _op_io(tmain, "multiclass_nms")
+    nms_names = [nms_in["BBoxes"][0], nms_in["Scores"][0]]
+    outs = []
+
+    def infer():
+        outs[:] = exe.run(tmain, feed=feeds[0], fetch_list=[
+            tnames["proposals"], tnames["dets"], tnames["num"],
+            tnames["map"]] + nms_names, scope=scope, return_numpy=False)
+
+    infer_ms = host_call_ms(infer, 3)
+    iprof = profile_call(infer)
+    rois, dets, num, mean_ap = [v.value.cpu() for v in outs[:4]]
+    h, w = cfg["image"]
+    print(f"[faster_rcnn] test forward: {infer_ms:.3f} ms a call (host clock,"
+          f" 3 calls after one), launches {iprof['launches']}, host syncs "
+          f"{iprof['syncs']}, busy {iprof['busy_ms']:.3f} ms; {rois.shape[0]} "
+          f"proposals, {int(num.reshape(-1)[0])} detections kept of "
+          f"{cfg['nms_keep']} at score {cfg['nms_score']}, mAP "
+          f"{float(mean_ap.reshape(-1)[0]):.4f}; {card_line()}")
+    # a net trained a few steps on noise scores every foreground class
+    # under the config's threshold: the same NMS and mAP on the forward's
+    # own boxes and scores at the threshold that leaves 2,000 candidates,
+    # card against CPU
+    boxes, scores = [v.value for v in outs[4:]]
+    fg = scores[0, 1:].reshape(-1).cpu()
+    thresh = float(fg.sort(descending=True).values[
+        min(2000, fg.numel()) - 1])
+    g = feeds[0]
+    gt_rows = np.concatenate([g["gt_label"].astype(np.float32),
+                              g["gt_box"]], 1)
+    nms_attrs = {"score_threshold": thresh, "nms_top_k": -1,
+                 "keep_top_k": cfg["nms_keep"],
+                 "nms_threshold": cfg["nms_thresh"], "normalized": False,
+                 "background_label": 0}
+    got = []
+    for device in (dev, "cpu"):
+        with op_device(device):
+            res = OpInfoMap.instance().get("multiclass_nms").compute(
+                {"BBoxes": [boxes.to(device)],
+                 "Scores": [scores.to(device)]}, dict(nms_attrs))
+            m = OpInfoMap.instance().get("detection_map").compute(
+                {"DetectRes": [res["Out"][0].reshape(-1, 6)],
+                 "Label": [torch.from_numpy(gt_rows).to(device)]},
+                {"overlap_threshold": 0.5})["MAP"][0]
+        got.append([v.cpu() for v in (res["Out"][0], res["NmsedNum"][0], m)])
+    (gd, gn, gm), (cd, cn, cm) = got
+    print(f"[faster_rcnn] multiclass_nms on the forward's {boxes.shape[1]} "
+          f"boxes x {scores.shape[1]} classes at score {thresh:.6f}: "
+          f"{int(gn[0])} kept, mAP {float(gm):.6f} against {len(gt_rows)} gt "
+          f"boxes; detections, count and mAP "
+          f"{'equal' if torch.equal(gd, cd) and torch.equal(gn, cn) and torch.equal(gm, cm) else 'DIFFER'}"
+          f" on the card and the CPU")
+    check(torch.equal(gd, cd) and torch.equal(gn, cn) and
+          torch.equal(gm, cm), "multiclass_nms or detection_map differs on "
+                               "the card")
+    check(int(gn[0]) > 0, "no detection at the lowered threshold")
+    check(0 < rois.shape[0] <= cfg["test_post_nms"], "proposal count")
+    check(bool((rois[:, 0::2] >= 0).all() and (rois[:, 0::2] <= w - 1).all()
+               and (rois[:, 1::2] >= 0).all() and (rois[:, 1::2] <= h - 1)
+               .all()), "a proposal lies outside the image")
+    check(tuple(dets.shape) == (1, cfg["nms_keep"], 6) and
+          0 <= int(num.reshape(-1)[0]) <= cfg["nms_keep"] and
+          bool(torch.isfinite(dets).all()), "detections")
+    check(0.0 <= float(mean_ap.reshape(-1)[0]) <= 1.0, "mAP out of range")
+    torch.backends.cudnn.benchmark = False
+    del exe, scope
+    torch.cuda.empty_cache()
+    return med
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6265,6 +6589,8 @@ def main():
     phase_sentiment_lstm(tpt, dev)
     phase_decode_ops(dev)
     phase_crnn(tpt, dev)
+    phase_rcnn_ops(dev)
+    phase_faster_rcnn(tpt, dev)
     # fp32 rows: launches on the O1 path (phase bert), beside those of the
     # eager path (phase eager_bert); bf16 rows: on the O2 path (phase
     # bert_o2); fp16 rows: in the fp16 eager loop of phase tiny_o2 (no

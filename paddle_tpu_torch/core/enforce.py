@@ -111,14 +111,39 @@ def enforce_not_none(v, message: str):
     return v
 
 
+def eager_only(x, op_name: str):
+    """Raise for a ``meta`` tensor (static shape inference): the op's
+    output shapes depend on the data, as under the JAX package's jit."""
+    if x.device.type == "meta":
+        raise InvalidArgumentError(
+            f"{op_name}: host-side / data-dependent op — eager only "
+            "(its output shapes depend on the data)")
+
+
 def host_only(x, op_name: str):
     """The value of a tensor that an op reads on the host (one
     device-to-host copy on the card), as a numpy array: the JAX
     package's guard for host-side, data-dependent ops. A ``meta`` tensor
     (static shape inference) has no value: the op is eager only, and its
-    outputs' shapes stay unknown, as under the JAX package's jit."""
-    if x.device.type == "meta":
-        raise InvalidArgumentError(
-            f"{op_name}: host-side / data-dependent op — eager only "
-            "(its output shapes depend on the data)")
-    return x.detach().cpu().numpy()
+    outputs' shapes stay unknown, as under the JAX package's jit.
+
+    A list or tuple of tensors gives a list of arrays, read with one
+    wait for the stream: each card tensor is copied into pinned memory
+    asynchronously, then the stream is synchronized once."""
+    if not isinstance(x, (list, tuple)):
+        return host_only([x], op_name)[0]
+    import torch
+    for t in x:
+        eager_only(t, op_name)
+    bufs, streams = [], {}
+    for t in x:
+        t = t.detach()
+        if t.device.type == "cuda":
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            streams[t.device] = torch.cuda.current_stream(t.device)
+            t = buf
+        bufs.append(t)
+    for s in streams.values():
+        s.synchronize()
+    return [b.cpu().numpy() for b in bufs]

@@ -80,7 +80,14 @@ _SKIP_OPS = frozenset({"feed", "fetch"})
 REFERENCE_EAGER_OPS = frozenset({
     "split_lod_tensor", "merge_lod_tensor", "merge_lod_tensor_infer",
     "assert", "tdm_sampler", "filter_by_instag", "py_func", "save",
-    "save_combine", "run_program", "tree_conv"})
+    "save_combine", "run_program", "tree_conv",
+    # ops/rcnn_ops.py: all but target_assign and multiclass_nms2
+    "generate_proposals", "rpn_target_assign", "retinanet_target_assign",
+    "generate_proposal_labels", "generate_mask_labels",
+    "collect_fpn_proposals", "distribute_fpn_proposals",
+    "mine_hard_examples", "box_decoder_and_assign", "locality_aware_nms",
+    "detection_map", "roi_perspective_transform",
+    "retinanet_detection_output"})
 
 # attrs naming a control-flow op's sub-blocks
 _BLOCK_ATTRS = ("cond_block", "body_block", "true_block", "false_block",

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..core.enforce import InvalidArgumentError, enforce
-from ..core.registry import register_op
+from ..core.registry import register_infer_meta, register_op
 
 _NONDIFF = ("ImgSize", "RoisNum", "ImInfo")
 
@@ -431,21 +431,25 @@ def box_clip(inputs, attrs):
 
 
 # ---------------------------------------------------------------- roi_align
-def _bilinear_clamped(img, yy, xx):
-    """4-tap bilinear sample of img [R, C, H, W] at yy, xx [R, P, Q]
-    (already clamped into the image) -> [R, C, P, Q]; a tap past the
-    last row or column takes the border pixel."""
-    r, c, h, w = img.shape
+def _bilinear_clamped(img, batch_idx, yy, xx):
+    """4-tap bilinear sample of img [N, C, H, W] at yy, xx [R, P, Q]
+    (already clamped into the image), row r of the samples reading image
+    ``batch_idx[r]`` -> [R, C, P, Q]; a tap past the last row or column
+    takes the border pixel. The taps gather pixel rows of a channels-last
+    copy of img, so no image is copied a RoI."""
+    n, c, h, w = img.shape
+    r = yy.shape[0]
     y0, x0 = torch.floor(yy), torch.floor(xx)
     ly = (yy - y0).to(img.dtype)[:, None]
     lx = (xx - x0).to(img.dtype)[:, None]
-    flat = img.reshape(r, c, h * w)
+    pixels = img.permute(0, 2, 3, 1).reshape(n * h * w, c)
+    base = (batch_idx * (h * w))[:, None, None]
 
     def at(yi, xi):
         yc = yi.to(torch.int64).clamp(0, h - 1)
         xc = xi.to(torch.int64).clamp(0, w - 1)
-        idx = (yc * w + xc).reshape(r, 1, -1).expand(-1, c, -1)
-        return flat.gather(2, idx).reshape(r, c, *yy.shape[1:])
+        rows = pixels[(base + yc * w + xc).reshape(-1)]
+        return rows.reshape(r, *yy.shape[1:], c).permute(0, 3, 1, 2)
 
     return (at(y0, x0) * (1 - ly) * (1 - lx)
             + at(y0, x0 + 1) * (1 - ly) * lx
@@ -501,7 +505,7 @@ def roi_align(inputs, attrs):
     vx = (xs >= -1.0) & (xs <= w)
     yg = ys.clamp(0.0, h - 1.0)[:, :, None].expand(-1, -1, xs.shape[1])
     xg = xs.clamp(0.0, w - 1.0)[:, None, :].expand(-1, ys.shape[1], -1)
-    vals = _bilinear_clamped(x[batch_idx], yg, xg)
+    vals = _bilinear_clamped(x, batch_idx, yg, xg)
     vals = vals * (vy[:, None, :, None] & vx[:, None, None, :])
     return {"Out": [vals.reshape(r, c, ph, sr, pw, sr).mean(dim=(3, 5))]}
 
@@ -544,6 +548,17 @@ def bipartite_match(inputs, attrs):
         val = torch.where(fill, best_val, val)
     return {"ColToRowMatchIndices": [idx[None, :]],
             "ColToRowMatchDist": [val[None, :]]}
+
+
+@register_infer_meta("bipartite_match")
+def _bipartite_match_meta(inputs, attrs):
+    """The matching indexes by its argmax on the host: static shape
+    inference takes [1, K] from DistMat [M, K]."""
+    dist = inputs["DistMat"][0]
+    k = dist.shape[-1]
+    return {"ColToRowMatchIndices": [dist.new_empty((1, k),
+                                                    dtype=torch.int32)],
+            "ColToRowMatchDist": [dist.new_empty((1, k))]}
 
 
 # ---------------------------------------------------------- multiclass_nms
@@ -620,6 +635,21 @@ def multiclass_nms(inputs, attrs):
     out, index, num = _detections(bboxes, scr, order.reshape(n, c * k), k,
                                   keep_top_k, max(score_thresh, 0.0))
     return {"Out": [out], "Index": [index], "NmsedNum": [num]}
+
+
+@register_infer_meta("multiclass_nms")
+def _multiclass_nms_meta(inputs, attrs):
+    """The greedy keep reads its convergence on the host: static shape
+    inference takes the padded shapes from the attrs."""
+    bboxes, scores = inputs["BBoxes"][0], inputs["Scores"][0]
+    n, m = bboxes.shape[0], bboxes.shape[1]
+    nms_top_k = int(attrs.get("nms_top_k", 100))
+    keep_top_k = int(attrs.get("keep_top_k", 100))
+    if keep_top_k <= 0:
+        keep_top_k = (nms_top_k if nms_top_k > 0 else m) * scores.shape[1]
+    return {"Out": [bboxes.new_empty((n, keep_top_k, 6))],
+            "Index": [bboxes.new_empty((n, keep_top_k), dtype=torch.int32)],
+            "NmsedNum": [bboxes.new_empty((n,), dtype=torch.int32)]}
 
 
 @register_op("matrix_nms", non_differentiable_inputs=("BBoxes", "Scores"))

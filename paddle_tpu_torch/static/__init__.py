@@ -24,9 +24,16 @@ extractors of the module-parity builders, the recurrent builders
 ``gru_unit``, ``lstm`` / ``lstm_unit`` of the RNN builders are ported,
 and the decode builders: ``crf_decoding`` (reusing the CRF transition),
 ``beam_search`` and ``beam_search_decode``, which replace their table
-forms as in the JAX package.
+forms as in the JAX package; the detection builders: the RoI pools,
+the detection entries of the simple tables, ``deformable_roi_pooling``,
+the detection composites of the module-parity builders (proposals,
+target assignment batched with its index offsets, FPN routing,
+``detection_output``), ``multi_box_head`` and ``ssd_loss`` (with the
+``zeros_like`` and ``ones_like`` it calls), and ``static.detection``.
+A host-side op (one that reads its inputs on the host, "eager only")
+leaves its outputs' shapes unknown, as the JAX package's does.
 Not ported yet: ``CompiledProgram``, static AMP, ``nets``, the rest of
-the RNN, SSD and module-parity builders and the later tables' other
+the RNN and module-parity builders and the later tables' other
 builders (ROADMAP Queue 1, item 5).
 """
 from __future__ import annotations
@@ -174,6 +181,11 @@ def _op(block: Block, type_: str, inputs, outputs, attrs):
         with lodctx.infer_shape_scope():
             outs = run_meta(opdef, specs, attrs)
     except Exception as e:
+        if "eager only" in str(e):
+            # host-side ops (detection sampling, PS...) cannot be shape-
+            # inferred: their outputs stay unknown and the executor runs
+            # them eagerly, as every op
+            return
         # all input shapes were known, so a failure here means the op is
         # genuinely mis-built (bad attr, rank mismatch): fail loudly at
         # build time like the reference's InferShape (ref: operator.cc:1076)
@@ -1733,3 +1745,599 @@ def _decode_builders():
 
 
 _decode_builders()
+
+
+# The RoI pooling builders of the JAX package's simple tables
+# (its _SIMPLE_LAYERS_2) and the detection entries of its
+# _SIMPLE_LAYERS_4 (layers/detection.py, ops in ops/rcnn_ops.py).
+_DETECTION_LAYERS = {
+    "roi_pool": ("roi_pool", [("input", "X"), ("rois", "ROIs")], ["Out"],
+                 {"pooled_height": 1, "pooled_width": 1,
+                  "spatial_scale": 1.0}),
+    "prroi_pool": ("prroi_pool", [("input", "X"), ("rois", "ROIs")],
+                   ["Out"],
+                   {"pooled_height": 1, "pooled_width": 1,
+                    "spatial_scale": 1.0, "sample_num": 4}),
+    "psroi_pool": ("psroi_pool", [("input", "X"), ("rois", "ROIs")],
+                   ["Out"],
+                   {"output_channels": 1, "spatial_scale": 1.0,
+                    "pooled_height": 1, "pooled_width": 1}),
+    "target_assign": ("target_assign",
+                      [("input", "X"),
+                       ("matched_indices", "MatchIndices")],
+                      ["Out", "OutWeight"], {"mismatch_value": 0.0}),
+    "detection_map": ("detection_map",
+                      [("detect_res", "DetectRes"), ("label", "Label")],
+                      ["MAP", "AccumPosCount", "AccumTruePos",
+                       "AccumFalsePos"],
+                      {"overlap_threshold": 0.5,
+                       "ap_type": "integral",
+                       "background_label": 0,
+                       "evaluate_difficult": True,
+                       "class_num": 0}),
+    "locality_aware_nms": ("locality_aware_nms",
+                           [("bboxes", "BBoxes"), ("scores", "Scores")],
+                           ["Out"],
+                           {"score_threshold": 0.0,
+                            "nms_threshold": 0.3, "nms_top_k": -1,
+                            "keep_top_k": -1, "background_label": 0}),
+    "roi_perspective_transform": (
+        "roi_perspective_transform", [("input", "X"), ("rois", "ROIs")],
+        ["Out", "Mask", "TransformMatrix", "Out2InIdx",
+         "Out2InWeights"],
+        {"transformed_height": 8, "transformed_width": 8,
+         "spatial_scale": 1.0}),
+    "collect_fpn_proposals": (
+        "collect_fpn_proposals",
+        [("multi_rois", "MultiLevelRois*"),
+         ("multi_scores", "MultiLevelScores*")],
+        ["FpnRois", "RoisNum"], {"post_nms_topN": 1000}),
+}
+for _lname, (_otype, _slots, _osl, _defs) in _DETECTION_LAYERS.items():
+    if not hasattr(nn, _lname):
+        setattr(nn, _lname, _make_simple_layer(_lname, _otype, _slots,
+                                               _osl, _defs))
+
+
+def _detection_builders():
+    """The JAX package's ``deformable_roi_pooling`` (its
+    ``_param_layer_ns_2``) and the detection composites of its
+    module-parity builders (``paddle_tpu/static/__init__.py:2364-2604``):
+    ``detection_output``, the proposal, target-assign and FPN builders,
+    with ``_target_assign_batched``, the per-image loop that offsets the
+    emitted anchor indices into the batch's rows. The rest of the
+    module-parity builders waits for ROADMAP item 5."""
+
+    def deformable_roi_pooling(input, rois, trans, no_trans=False,
+                               spatial_scale=1.0, group_size=(1, 1),
+                               pooled_height=1, pooled_width=1,
+                               part_size=None, sample_per_part=1,
+                               trans_std=0.1, position_sensitive=False,
+                               name=None):
+        """ref: nn.py deformable_roi_pooling →
+        deformable_psroi_pooling op. position_sensitive=False (the
+        reference default) keeps C output channels; True maps channel
+        groups to bins (psroi), requiring C % (ph·pw) == 0."""
+        c = int(input.shape[1])
+        out_dim = c // (pooled_height * pooled_width) \
+            if position_sensitive else c
+        out = _new_tmp(input.block, name or "deform_roi_pool")
+        top = _new_tmp(input.block, "deform_roi_top")
+        ins = {"Input": [input.name], "ROIs": [rois.name]}
+        if not no_trans and trans is not None:
+            ins["Trans"] = [trans.name]
+        _op(input.block, "deformable_psroi_pooling", ins,
+            {"Output": [out.name], "TopCount": [top.name]},
+            {"no_trans": bool(no_trans),
+             "spatial_scale": float(spatial_scale),
+             "output_dim": out_dim,
+             "pooled_height": int(pooled_height),
+             "pooled_width": int(pooled_width),
+             "sample_per_part": int(sample_per_part),
+             "trans_std": float(trans_std)})
+        return out
+
+    # --- detection composites
+    def detection_output(loc, scores, prior_box, prior_box_var,
+                         background_label=0, nms_threshold=0.3,
+                         nms_top_k=400, keep_top_k=200,
+                         score_threshold=0.01, nms_eta=1.0):
+        """ref: layers/detection.py detection_output — box_coder decode
+        + multiclass_nms."""
+        decoded = _new_tmp(loc.block, "det_decoded")
+        _op(loc.block, "box_coder",
+            {"PriorBox": [prior_box.name],
+             "PriorBoxVar": [prior_box_var.name],
+             "TargetBox": [loc.name]},
+            {"OutputBox": [decoded.name]},
+            {"code_type": "decode_center_size", "box_normalized": True})
+        out = _new_tmp(loc.block, "det_out")
+        _op(loc.block, "multiclass_nms",
+            {"BBoxes": [decoded.name], "Scores": [scores.name]},
+            {"Out": [out.name]},
+            {"background_label": background_label,
+             "nms_threshold": nms_threshold, "nms_top_k": nms_top_k,
+             "keep_top_k": keep_top_k,
+             "score_threshold": score_threshold, "nms_eta": nms_eta})
+        return out
+
+    def _mk(block, prefix):
+        return _new_tmp(block, prefix)
+
+    def generate_proposals(scores, bbox_deltas, im_info, anchors,
+                           variances, pre_nms_top_n=6000,
+                           post_nms_top_n=1000, nms_thresh=0.5,
+                           min_size=0.1, eta=1.0,
+                           return_rois_num=False):
+        block = scores.block
+        rois = _mk(block, "gp_rois")
+        probs = _mk(block, "gp_probs")
+        num = _mk(block, "gp_num")
+        _op(block, "generate_proposals",
+            {"Scores": [scores.name], "BboxDeltas": [bbox_deltas.name],
+             "ImInfo": [im_info.name], "Anchors": [anchors.name],
+             "Variances": [variances.name]},
+            {"RpnRois": [rois.name], "RpnRoiProbs": [probs.name],
+             "RpnRoisNum": [num.name]},
+            {"pre_nms_topN": pre_nms_top_n,
+             "post_nms_topN": post_nms_top_n, "nms_thresh": nms_thresh,
+             "min_size": min_size, "eta": eta})
+        return (rois, probs, num) if return_rois_num else (rois, probs)
+
+    def _anchor_count(anchor_box):
+        shp = [d for d in (anchor_box.shape or (1,))[:-1]]
+        n = 1
+        for d in shp:
+            n *= int(d)
+        return max(n, 1)
+
+    def _target_assign_batched(op_type, bbox_pred, anchor_box, per_image,
+                               attrs, out_slots):
+        """Run a single-image target-assign op per batch image (the op
+        kernel's 'batch handled by the caller' contract), offsetting the
+        emitted anchor indices by image*num_anchors so they index the
+        batch-flattened prediction rows, then concat all outputs."""
+        block = anchor_box.block
+        batch = 1
+        if bbox_pred.shape and len(bbox_pred.shape) >= 3 \
+                and int(bbox_pred.shape[0]) > 0:
+            batch = int(bbox_pred.shape[0])
+        a_count = _anchor_count(anchor_box)
+        rows = {slot: [] for slot in out_slots}
+        for bi in range(batch):
+            ins = {"Anchor": [anchor_box.name]}
+            for slot, var in per_image.items():
+                if var is None:
+                    continue
+                if batch == 1:
+                    ins[slot] = [var.name]
+                else:
+                    sl = nn.slice(var, axes=[0], starts=[bi],
+                                  ends=[bi + 1])
+                    if slot in ("GtBoxes", "GtLabels"):
+                        sl = nn.squeeze(sl, axes=[0])
+                    ins[slot] = [sl.name]
+            outs = {slot: _mk(block, f"ta_{slot}{bi}")
+                    for slot in out_slots}
+            _op(block, op_type, ins,
+                {slot: [v.name] for slot, v in outs.items()}, attrs)
+            for slot in ("ScoreIndex", "LocationIndex"):
+                if slot in outs and bi:
+                    off = fill_constant([1], "int32", bi * a_count)
+                    outs[slot] = nn.elementwise_add(outs[slot], off)
+            for slot in out_slots:
+                rows[slot].append(outs[slot])
+        if batch == 1:
+            return {slot: rows[slot][0] for slot in out_slots}
+        return {slot: nn.concat(rows[slot], axis=0)
+                for slot in out_slots}
+
+    def rpn_target_assign(bbox_pred, cls_logits, anchor_box,
+                          anchor_var, gt_boxes, is_crowd, im_info,
+                          rpn_batch_size_per_im=256,
+                          rpn_straddle_thresh=0.0,
+                          rpn_fg_fraction=0.5,
+                          rpn_positive_overlap=0.7,
+                          rpn_negative_overlap=0.3, use_random=True):
+        outs = _target_assign_batched(
+            "rpn_target_assign", bbox_pred, anchor_box,
+            {"GtBoxes": gt_boxes, "IsCrowd": is_crowd,
+             "ImInfo": im_info},
+            {"rpn_batch_size_per_im": rpn_batch_size_per_im,
+             "rpn_straddle_thresh": rpn_straddle_thresh,
+             "rpn_fg_fraction": rpn_fg_fraction,
+             "rpn_positive_overlap": rpn_positive_overlap,
+             "rpn_negative_overlap": rpn_negative_overlap,
+             "use_random": use_random},
+            ("ScoreIndex", "LocationIndex", "TargetLabel",
+             "TargetBBox", "BBoxInsideWeight"))
+        # ref detection.py rpn_target_assign returns *gathered
+        # predictions*, not the raw index tensors: logits/deltas are
+        # flattened then indexed by Score/LocationIndex so losses see
+        # (predicted, target) pairs directly.
+        pred_cls = nn.gather(nn.reshape(cls_logits, shape=[-1, 1]),
+                             outs["ScoreIndex"])
+        pred_loc = nn.gather(nn.reshape(bbox_pred, shape=[-1, 4]),
+                             outs["LocationIndex"])
+        return (pred_cls, pred_loc, outs["TargetLabel"],
+                outs["TargetBBox"], outs["BBoxInsideWeight"])
+
+    def generate_proposal_labels(rpn_rois, gt_classes, is_crowd,
+                                 gt_boxes, im_info,
+                                 batch_size_per_im=256,
+                                 fg_fraction=0.25, fg_thresh=0.25,
+                                 bg_thresh_hi=0.5, bg_thresh_lo=0.0,
+                                 bbox_reg_weights=[0.1, 0.1, 0.2, 0.2],
+                                 class_nums=None, use_random=True,
+                                 is_cls_agnostic=False,
+                                 is_cascade_rcnn=False):
+        block = rpn_rois.block
+        outs = [_mk(block, p) for p in
+                ("gpl_rois", "gpl_labels", "gpl_tgts", "gpl_win",
+                 "gpl_wout", "gpl_num")]
+        _op(block, "generate_proposal_labels",
+            {"RpnRois": [rpn_rois.name], "GtClasses": [gt_classes.name],
+             "IsCrowd": [is_crowd.name], "GtBoxes": [gt_boxes.name],
+             "ImInfo": [im_info.name]},
+            {"Rois": [outs[0].name], "LabelsInt32": [outs[1].name],
+             "BboxTargets": [outs[2].name],
+             "BboxInsideWeights": [outs[3].name],
+             "BboxOutsideWeights": [outs[4].name],
+             "RoisNum": [outs[5].name]},
+            {"batch_size_per_im": batch_size_per_im,
+             "fg_fraction": fg_fraction, "fg_thresh": fg_thresh,
+             "bg_thresh_hi": bg_thresh_hi, "bg_thresh_lo": bg_thresh_lo,
+             "class_nums": class_nums or 81})
+        return tuple(outs[:5])
+
+    def generate_mask_labels(im_info, gt_classes, is_crowd, gt_segms,
+                             rois, labels_int32, num_classes,
+                             resolution):
+        block = rois.block
+        outs = [_mk(block, p) for p in ("gml_rois", "gml_has",
+                                        "gml_mask")]
+        _op(block, "generate_mask_labels",
+            {"ImInfo": [im_info.name], "GtClasses": [gt_classes.name],
+             "IsCrowd": [is_crowd.name], "GtSegms": [gt_segms.name],
+             "Rois": [rois.name], "LabelsInt32": [labels_int32.name]},
+            {"MaskRois": [outs[0].name],
+             "RoiHasMaskInt32": [outs[1].name],
+             "MaskInt32": [outs[2].name]},
+            {"num_classes": num_classes, "resolution": resolution})
+        return tuple(outs)
+
+    def distribute_fpn_proposals(fpn_rois, min_level, max_level,
+                                 refer_level, refer_scale,
+                                 rois_num=None):
+        block = fpn_rois.block
+        n_levels = max_level - min_level + 1
+        multi = [_mk(block, f"dfp_l{i}") for i in range(n_levels)]
+        nums = [_mk(block, f"dfp_n{i}") for i in range(n_levels)]
+        restore = _mk(block, "dfp_restore")
+        _op(block, "distribute_fpn_proposals",
+            {"FpnRois": [fpn_rois.name]},
+            {"MultiFpnRois": [v.name for v in multi],
+             "RestoreIndex": [restore.name],
+             "MultiLevelRoIsNum": [v.name for v in nums]},
+            {"min_level": min_level, "max_level": max_level,
+             "refer_level": refer_level, "refer_scale": refer_scale})
+        return multi, restore
+
+    def box_decoder_and_assign(prior_box, prior_box_var, target_box,
+                               box_score, box_clip=None):
+        block = prior_box.block
+        dec = _mk(block, "bda_dec")
+        assign = _mk(block, "bda_assign")
+        _op(block, "box_decoder_and_assign",
+            {"PriorBox": [prior_box.name],
+             "PriorBoxVar": [prior_box_var.name],
+             "TargetBox": [target_box.name],
+             "BoxScore": [box_score.name]},
+            {"DecodeBox": [dec.name], "OutputAssignBox": [assign.name]},
+            {})
+        return dec, assign
+
+    def retinanet_target_assign(bbox_pred, cls_logits, anchor_box,
+                                anchor_var, gt_boxes, gt_labels,
+                                is_crowd, im_info, num_classes=1,
+                                positive_overlap=0.5,
+                                negative_overlap=0.4):
+        outs = _target_assign_batched(
+            "retinanet_target_assign", bbox_pred, anchor_box,
+            {"GtBoxes": gt_boxes, "GtLabels": gt_labels,
+             "IsCrowd": is_crowd, "ImInfo": im_info},
+            {"positive_overlap": positive_overlap,
+             "negative_overlap": negative_overlap},
+            ("ScoreIndex", "LocationIndex", "TargetLabel",
+             "TargetBBox", "BBoxInsideWeight", "ForegroundNumber"))
+        # ref detection.py retinanet_target_assign: gather predicted
+        # logits/deltas by the assigned indices; 6-tuple is
+        # (predict_scores, predict_location, target_label, target_bbox,
+        #  bbox_inside_weight, fg_num).
+        pred_cls = nn.gather(
+            nn.reshape(cls_logits, shape=[-1, num_classes]),
+            outs["ScoreIndex"])
+        pred_loc = nn.gather(nn.reshape(bbox_pred, shape=[-1, 4]),
+                             outs["LocationIndex"])
+        return (pred_cls, pred_loc, outs["TargetLabel"],
+                outs["TargetBBox"], outs["BBoxInsideWeight"],
+                outs["ForegroundNumber"])
+
+    def retinanet_detection_output(bboxes, scores, anchors, im_info,
+                                   score_threshold=0.05, nms_top_k=1000,
+                                   keep_top_k=100, nms_threshold=0.3,
+                                   nms_eta=1.0):
+        block = im_info.block
+        out = _mk(block, "rdo_out")
+        _op(block, "retinanet_detection_output",
+            {"BBoxes": [v.name for v in bboxes],
+             "Scores": [v.name for v in scores],
+             "Anchors": [v.name for v in anchors],
+             "ImInfo": [im_info.name]},
+            {"Out": [out.name]},
+            {"score_threshold": score_threshold, "nms_top_k": nms_top_k,
+             "keep_top_k": keep_top_k, "nms_threshold": nms_threshold})
+        return out
+
+    for fn in (deformable_roi_pooling, detection_output, generate_proposals,
+               rpn_target_assign, generate_proposal_labels,
+               generate_mask_labels, distribute_fpn_proposals,
+               box_decoder_and_assign, retinanet_target_assign,
+               retinanet_detection_output):
+        if not hasattr(nn, fn.__name__):
+            setattr(nn, fn.__name__, staticmethod(fn))
+
+
+_detection_builders()
+
+
+def _ssd_builders():
+    """fluid/layers/detection.py multi_box_head (:1840) + ssd_loss
+    (:1461), the SSD training composites (``paddle_tpu/static/
+    __init__.py:2883-3119``), with the ``zeros_like`` and ``ones_like``
+    builders that ``ssd_loss`` calls (the JAX package's module-parity
+    builders)."""
+
+    def zeros_like(x, out=None):
+        o = _new_tmp(x.block, "zeros_like")
+        _op(x.block, "fill_zeros_like", {"X": [x.name]},
+            {"Out": [o.name]}, {})
+        return o
+
+    def ones_like(x, out=None):
+        o = _new_tmp(x.block, "ones_like")
+        _op(x.block, "fill_any_like", {"X": [x.name]},
+            {"Out": [o.name]}, {"value": 1.0})
+        return o
+
+    def multi_box_head(inputs, image, base_size, num_classes,
+                       aspect_ratios, min_ratio=None, max_ratio=None,
+                       min_sizes=None, max_sizes=None, steps=None,
+                       step_w=None, step_h=None, offset=0.5,
+                       variance=[0.1, 0.1, 0.2, 0.2], flip=True,
+                       clip=False, kernel_size=1, pad=0, stride=1,
+                       name=None, min_max_aspect_ratios_order=False):
+        """Per feature map: a 3x3/1x1 conv head for loc (4/prior) and
+        conf (C/prior) + prior_box; outputs concatenated across maps
+        (the reference's layout: mbox_locs [N, P, 4],
+        mbox_confs [N, P, C], boxes/vars [P, 4])."""
+        enforce(isinstance(inputs, (list, tuple)) and inputs,
+                "multi_box_head needs a feature-map list",
+                InvalidArgumentError)
+        n_maps = len(inputs)
+        if min_sizes is None:
+            enforce(min_ratio is not None and max_ratio is not None,
+                    "need min/max_ratio or explicit min/max_sizes",
+                    InvalidArgumentError)
+            step = int((max_ratio - min_ratio) / max(n_maps - 2, 1))
+            min_sizes, max_sizes = [base_size * 0.1], [base_size * 0.2]
+            for r in range(min_ratio, max_ratio + 1, step):
+                min_sizes.append(base_size * r / 100.0)
+                max_sizes.append(base_size * (r + step) / 100.0)
+            min_sizes = min_sizes[:n_maps]
+            max_sizes = max_sizes[:n_maps]
+        locs, confs, boxes, pvars = [], [], [], []
+        for i, feat in enumerate(inputs):
+            ar = aspect_ratios[i] if isinstance(aspect_ratios[0],
+                                                (list, tuple)) \
+                else aspect_ratios
+            # build the priors FIRST: the op's ratio expansion (1.0
+            # prepended, dedup, reciprocals) owns the prior count —
+            # the conv head sizes follow its output shape
+            box = _new_tmp(feat.block, f"mbh_box{i}")
+            var = _new_tmp(feat.block, f"mbh_var{i}")
+            _op(feat.block, "prior_box",
+                {"Input": [feat.name], "Image": [image.name]},
+                {"Boxes": [box.name], "Variances": [var.name]},
+                {"min_sizes": [float(min_sizes[i])],
+                 "max_sizes": [float(max_sizes[i])] if max_sizes
+                 else [],
+                 "aspect_ratios": [float(a) for a in ar],
+                 "variances": list(variance), "flip": flip,
+                 "clip": clip, "offset": offset,
+                 "min_max_aspect_ratios_order":
+                     min_max_aspect_ratios_order,
+                 "step_w": (steps[i] if steps else (step_w or 0.0)),
+                 "step_h": (steps[i] if steps else (step_h or 0.0))})
+            n_prior = int(box.shape[2])     # [H, W, P, 4]
+            loc = nn.conv2d(feat, num_filters=n_prior * 4,
+                            filter_size=kernel_size, padding=pad,
+                            stride=stride)
+            conf = nn.conv2d(feat, num_filters=n_prior * num_classes,
+                             filter_size=kernel_size, padding=pad,
+                             stride=stride)
+            # [N, P*4, H, W] → [N, H*W*P, 4]
+            loc_t = nn.transpose(loc, axis=[0, 2, 3, 1])
+            b = int(feat.shape[0])
+            locs.append(nn.reshape(loc_t, shape=[b, -1, 4]))
+            conf_t = nn.transpose(conf, axis=[0, 2, 3, 1])
+            confs.append(nn.reshape(conf_t,
+                                    shape=[b, -1, num_classes]))
+            h_i, w_i = int(feat.shape[2]), int(feat.shape[3])
+            boxes.append(nn.reshape(box, shape=[h_i * w_i * n_prior,
+                                                4]))
+            pvars.append(nn.reshape(var, shape=[h_i * w_i * n_prior,
+                                                4]))
+        mbox_locs = nn.concat(locs, axis=1)
+        mbox_confs = nn.concat(confs, axis=1)
+        all_boxes = nn.concat(boxes, axis=0)
+        all_vars = nn.concat(pvars, axis=0)
+        return mbox_locs, mbox_confs, all_boxes, all_vars
+
+    def ssd_loss(location, confidence, gt_box, gt_label, prior_box,
+                 prior_box_var=None, background_label=0,
+                 overlap_threshold=0.5, neg_pos_ratio=3.0,
+                 neg_overlap=0.5, loc_loss_weight=1.0,
+                 conf_loss_weight=1.0, match_type="per_prediction",
+                 mining_type="max_negative", normalize=True,
+                 sample_size=None):
+        """ref: detection.py ssd_loss — match priors to gt
+        (bipartite/per-prediction via iou + bipartite_match), assign
+        loc/conf targets, hard-mine negatives, smooth_l1 + softmax CE.
+        Dense contract: gt_box [B, G, 4], gt_label [B, G, 1]."""
+        block = location.block
+        b_sz = int(location.shape[0])
+        g_sz = int(gt_box.shape[1])
+
+        # per-image matching (iou_similarity/bipartite_match are 2-D,
+        # like the reference kernels; the LoD batch walk becomes a
+        # static python loop). Matched indices are offset by image so
+        # they index the flattened [B*G, ...] gt tensors that
+        # target_assign consumes.
+        match_rows = []
+        for bi in range(b_sz):
+            gt_b = nn.squeeze(nn.slice(gt_box, axes=[0], starts=[bi],
+                                       ends=[bi + 1]), axes=[0])
+            iou = _new_tmp(block, f"ssd_iou{bi}")
+            _op(block, "iou_similarity",
+                {"X": [gt_b.name], "Y": [prior_box.name]},
+                {"Out": [iou.name]}, {})
+            mi = _new_tmp(block, f"ssd_match{bi}")
+            md = _new_tmp(block, f"ssd_dist{bi}")
+            _op(block, "bipartite_match", {"DistMat": [iou.name]},
+                {"ColToRowMatchIndices": [mi.name],
+                 "ColToRowMatchDist": [md.name]},
+                {"match_type": match_type,
+                 "dist_threshold": overlap_threshold})
+            if bi:
+                # offset matched (>=0) indices into the flat gt rows
+                off = nn.scale(
+                    nn.cast(greater_equal(mi, nn.zeros_like(mi)),
+                            out_dtype="int32"),
+                    scale=float(bi * g_sz))
+                mi = nn.elementwise_add(mi, nn.cast(off,
+                                                    out_dtype="int32"))
+            match_rows.append(mi)
+        match_idx = nn.concat(match_rows, axis=0) if b_sz > 1 else             match_rows[0]
+
+        # conf loss per prior (against matched gt labels; bg elsewhere)
+        tgt_lab = _new_tmp(block, "ssd_tlab")
+        tgt_lab_w = _new_tmp(block, "ssd_tlabw")
+        _op(block, "target_assign",
+            {"X": [gt_label.name], "MatchIndices": [match_idx.name]},
+            {"Out": [tgt_lab.name], "OutWeight": [tgt_lab_w.name]},
+            {"mismatch_value": float(background_label)})
+        conf_loss_all = nn.softmax_with_cross_entropy(
+            confidence, nn.cast(tgt_lab, out_dtype="int64"))
+        conf_loss_2d = nn.reshape(conf_loss_all,
+                                  shape=[int(location.shape[0]), -1])
+        neg_idx = _new_tmp(block, "ssd_neg")
+        upd_match = _new_tmp(block, "ssd_upd")
+        neg_num = _new_tmp(block, "ssd_negnum")
+        _op(block, "mine_hard_examples",
+            {"ClsLoss": [conf_loss_2d.name],
+             "MatchIndices": [match_idx.name]},
+            {"NegIndices": [neg_idx.name],
+             "UpdatedMatchIndices": [upd_match.name],
+             "NegIndicesNum": [neg_num.name]},
+            {"neg_pos_ratio": float(neg_pos_ratio),
+             "neg_dist_threshold": float(neg_overlap),
+             "mining_type": mining_type})
+
+        # conf target weights including mined negatives
+        tgt_lab2 = _new_tmp(block, "ssd_tlab2")
+        tgt_lab2_w = _new_tmp(block, "ssd_tlab2w")
+        _op(block, "target_assign",
+            {"X": [gt_label.name], "MatchIndices": [upd_match.name],
+             "NegIndices": [neg_idx.name]},
+            {"Out": [tgt_lab2.name], "OutWeight": [tgt_lab2_w.name]},
+            {"mismatch_value": float(background_label)})
+        conf_loss = nn.elementwise_mul(
+            nn.reshape(conf_loss_all, shape=[int(location.shape[0]),
+                                             -1, 1]),
+            tgt_lab2_w)
+
+        # localization (reference order): encode ALL (gt, prior)
+        # pairs per image → [G, P, 4], then per prior p select row
+        # match[p] via a one-hot contraction (trace-friendly gather)
+        enc_sel_rows, w_rows = [], []
+        p_sz = int(prior_box.shape[0])
+        for bi in range(b_sz):
+            gt_b = nn.squeeze(nn.slice(gt_box, axes=[0], starts=[bi],
+                                       ends=[bi + 1]), axes=[0])
+            enc = _new_tmp(block, f"ssd_enc{bi}")
+            ins = {"PriorBox": [prior_box.name],
+                   "TargetBox": [gt_b.name]}
+            if prior_box_var is not None:
+                ins["PriorBoxVar"] = [prior_box_var.name]
+            _op(block, "box_coder", ins, {"OutputBox": [enc.name]},
+                {"code_type": "encode_center_size",
+                 "box_normalized": True})          # [G, P, 4]
+            mb = match_rows[bi]                    # [1, P] (offset-free
+            #                                        for bi=0 only)
+            mb_local = nn.reshape(match_rows[bi], shape=[p_sz])                 if bi == 0 else nn.scale(
+                    nn.reshape(match_rows[bi], shape=[p_sz]),
+                    scale=1.0, bias=-float(bi * g_sz))
+            clipped = nn.clip(mb_local, min=0.0, max=float(g_sz - 1))                 if hasattr(nn, "clip") else mb_local
+            oh = nn.one_hot(nn.reshape(nn.cast(clipped,
+                                               out_dtype="int64"),
+                                       shape=[p_sz]), depth=g_sz)
+            # [P, G] x [G, P, 4]: transpose enc to [P, G, 4], weight
+            enc_t = nn.transpose(enc, axis=[1, 0, 2])
+            sel = nn.reduce_sum(
+                nn.elementwise_mul(enc_t,
+                                   nn.unsqueeze(oh, axes=[2])),
+                dim=[1])                           # [P, 4]
+            enc_sel_rows.append(sel)
+            zero_i = fill_constant([p_sz, 1], "int32", 0)
+            wmask = nn.cast(greater_equal(
+                nn.reshape(mb_local, shape=[p_sz, 1]), zero_i),
+                out_dtype="float32")
+            w_rows.append(wmask)
+        enc_all = nn.stack(enc_sel_rows, axis=0)   # [B, P, 4]
+        tgt_box_w = nn.stack(w_rows, axis=0)       # [B, P, 1]
+        loc_diff = nn.elementwise_sub(location, enc_all)
+        abs_d = nn.abs(loc_diff)
+        quad = nn.scale(nn.elementwise_mul(loc_diff, loc_diff),
+                        scale=0.5)
+        lin = nn.scale(abs_d, scale=1.0, bias=-0.5)
+        near = _new_tmp(block, "ssd_near")
+        _op(block, "less_than",
+            {"X": [abs_d.name], "Y": [nn.ones_like(abs_d).name]},
+            {"Out": [near.name]}, {})
+        piece = _new_tmp(block, "ssd_sl1")
+        _op(block, "where",
+            {"Condition": [near.name], "X": [quad.name],
+             "Y": [lin.name]}, {"Out": [piece.name]}, {})
+        sl1 = nn.elementwise_mul(
+            nn.reduce_sum(piece, dim=[2], keep_dim=True), tgt_box_w)
+
+        total = nn.elementwise_add(
+            nn.scale(sl1, scale=float(loc_loss_weight)),
+            nn.scale(conf_loss, scale=float(conf_loss_weight)))
+        # reference tail: per-image sum over priors → [N, 1], then
+        # normalize by reduce_sum(target_loc_weight) (the number of
+        # MATCHED priors), not by the constant prior count
+        total = nn.reduce_sum(nn.reshape(total, shape=[b_sz, -1]),
+                              dim=[1], keep_dim=True)       # [N, 1]
+        if normalize:
+            normalizer = nn.reduce_sum(tgt_box_w)
+            total = nn.elementwise_div(total, normalizer)
+        return total
+
+    for fn in (zeros_like, ones_like, multi_box_head, ssd_loss):
+        if not hasattr(nn, fn.__name__):
+            setattr(nn, fn.__name__, staticmethod(fn))
+
+
+_ssd_builders()

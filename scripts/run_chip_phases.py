@@ -10,9 +10,10 @@ built into its own ``build/``. PHASE is one of ``bert`` (phase bert, then
 one O1 step under the profiler: launches, host syncs, device busy),
 ``bert_o2``, ``eager_bert``, ``tensor_api``, ``nn_api``, ``nn_layers``,
 ``cyclegan``, ``cf_api``, ``control_flow``, ``ptb_lm``, ``seq_ops``,
-``rnnlm_eager``, ``sentiment_lstm``, ``decode_ops``, ``crnn`` and
-``fp16`` (phase timing at fp16). To compare two commits on one card, run them in turns in one
-call, one process each, e.g. parent, change, change, parent.
+``rnnlm_eager``, ``sentiment_lstm``, ``decode_ops``, ``crnn``,
+``rcnn_ops``, ``faster_rcnn`` and ``fp16`` (phase timing at fp16). To
+compare two commits on one card, run them in turns in one call, one
+process each, e.g. parent, change, change, parent.
 """
 import os
 import sys
@@ -93,6 +94,10 @@ def main():
             cs.phase_decode_ops(dev)
         elif ph == "crnn":
             cs.phase_crnn(tpt, dev)
+        elif ph == "rcnn_ops":
+            cs.phase_rcnn_ops(dev)
+        elif ph == "faster_rcnn":
+            cs.phase_faster_rcnn(tpt, dev)
         elif ph == "fp16":
             cs.phase_timing(fa, dev, torch.float16)
         else:

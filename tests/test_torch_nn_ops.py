@@ -24,6 +24,7 @@ from paddle_tpu_torch.core.registry import OpInfoMap
 from paddle_tpu_torch.testing.cf_cases import CF_CASES
 from paddle_tpu_torch.testing.decode_cases import DECODE_TYPES
 from paddle_tpu_torch.testing.nn_cases import NN_CASES
+from paddle_tpu_torch.testing.rcnn_cases import RCNN_TYPES
 from paddle_tpu_torch.testing.seq_cases import SEQ_TYPES
 from test_torch_tensor_ops import (check_forward, check_gradient,
                                    ref_module)
@@ -65,8 +66,8 @@ def test_registry_holds_the_slice_against_the_reference():
     assert not set(pops) - set(jops)
     new = slice_types()
     # the later slices' types (control flow's, the sequence slice's,
-    # then the decoding slice's) aside
-    later = {c.op for c in CF_CASES} | SEQ_TYPES | DECODE_TYPES
+    # the decoding slice's, then the two-stage detection slice's) aside
+    later = {c.op for c in CF_CASES} | SEQ_TYPES | DECODE_TYPES | RCNN_TYPES
     assert len(new) == 63 and len(set(pops) - later) == PORTED_BEFORE + 63
     assert new <= set(pops)
     assert collections.Counter(ref_module(t) for t in new) == SLICE

@@ -266,25 +266,24 @@ def test_builder_of_an_op_the_port_lacks_builds_and_raises_at_run():
     outputs' VarDescs stay unknown) and raises NotFoundError when run,
     as the JAX package does for an unregistered op. Every entry of the
     first table now has its op, so the builder is made by the tables'
-    own factory over an op of ROADMAP item 4f."""
+    own factory over an op of ROADMAP item 12 (the quantization ops)."""
     from paddle_tpu_torch.core.registry import OpInfoMap
     api = chip_smoke.port_static_api()
-    assert not OpInfoMap.instance().has("generate_proposals")
+    assert not OpInfoMap.instance().has("fake_quantize_abs_max")
     builder = api.static._make_simple_layer(
-        "generate_proposals", "generate_proposals",
-        [("scores", "Scores"), ("bbox_deltas", "BboxDeltas")],
-        ["RpnRois"], {}).__func__
+        "fake_quantize_abs_max", "fake_quantize_abs_max",
+        [("x", "X"), ("y", "InScale")], ["Out"], {}).__func__
     prog, startup = tpt.Program(), tpt.Program()
     with api.static.program_guard(prog, startup):
         x = api.static.data("x", [2, 5], "float32")
         y = api.static.data("y", [2, 5], "float32")
-        rois = builder(x, y)
-    assert prog.global_block().var(rois.name).shape is None
+        out = builder(x, y)
+    assert prog.global_block().var(out.name).shape is None
     with pytest.raises(tpt.core.enforce.NotFoundError,
-                       match="generate_proposals"):
+                       match="fake_quantize_abs_max"):
         tpt.Executor().run(prog, feed={"x": np.ones((2, 5), np.float32),
                                        "y": np.ones((2, 5), np.float32)},
-                           fetch_list=[rois], scope=tpt.Scope())
+                           fetch_list=[out], scope=tpt.Scope())
 
 
 def test_flash_shape_rule_launches_nothing():

@@ -1,5 +1,6 @@
 """Every public name of the reference's ``dygraph``, ``nn``, ``static``,
-``static.nn`` and ``tensor_api`` exists in the port's module of the same
+``static.nn``, ``static.detection`` and ``tensor_api`` exists in the
+port's module of the same
 name (F5: ``dygraph.VarBase`` was missing), less the names a named
 ROADMAP Queue 1 item still defers, which raise naming it or are absent
 until it lands, and less the JAX tape's internals, which have no twin.
@@ -32,34 +33,28 @@ DEFERRED = {
     "static.nn": dict.fromkeys((
         "adaptive_pool2d", "adaptive_pool3d", "add_position_encoding",
         "autoincreased_step_counter", "bilinear_tensor_product", "birnn",
-        "box_decoder_and_assign", "brelu", "center_loss", "chunk_eval",
-        "collect_fpn_proposals", "continuous_value_model", "conv2d_transpose",
-        "conv3d", "conv3d_transpose", "create_global_var", "create_tensor",
-        "cross_entropy2", "data_norm", "deformable_conv",
-        "deformable_roi_pooling", "detection_map", "detection_output",
-        "dice_loss", "distribute_fpn_proposals", "dynamic_decode", "eye",
-        "fill_constant_batch_size_like", "filter_by_instag", "gaussian_random",
-        "gaussian_random_batch_size_like", "generate_mask_labels",
-        "generate_proposal_labels", "generate_proposals",
-        "get_tensor_from_selected_rows", "group_norm", "hash", "hsigmoid",
-        "im2sequence", "image_resize_short", "inplace_abn", "instance_norm",
-        "layer_norm", "locality_aware_nms", "lod_append", "logical_and",
-        "logical_or", "logical_xor", "maxout", "mean_iou",
-        "merge_selected_rows", "multi_box_head", "nce", "npair_loss", "ones",
-        "ones_like", "prelu", "prroi_pool", "psroi_pool", "py_func",
+        "brelu", "center_loss", "chunk_eval", "continuous_value_model",
+        "conv2d_transpose", "conv3d", "conv3d_transpose", "create_global_var",
+        "create_tensor", "cross_entropy2", "data_norm", "deformable_conv",
+        "dice_loss", "dynamic_decode", "eye", "fill_constant_batch_size_like",
+        "filter_by_instag", "gaussian_random",
+        "gaussian_random_batch_size_like", "get_tensor_from_selected_rows",
+        "group_norm", "hash", "hsigmoid", "im2sequence", "image_resize_short",
+        "inplace_abn", "instance_norm", "layer_norm", "lod_append",
+        "logical_and", "logical_or", "logical_xor", "maxout", "mean_iou",
+        "merge_selected_rows", "nce", "npair_loss", "ones", "prelu", "py_func",
         "random_crop", "range", "rank", "reduce_all", "reduce_any",
-        "resize_linear", "retinanet_detection_output",
-        "retinanet_target_assign", "rnn", "roi_perspective_transform",
-        "roi_pool", "rpn_target_assign", "sampled_softmax_with_cross_entropy",
+        "resize_linear", "rnn", "sampled_softmax_with_cross_entropy",
         "sampling_id", "scatter_nd", "similarity_focus", "size", "soft_relu",
-        "spectral_norm", "square_error_cost", "ssd_loss", "target_assign",
-        "uniform_random", "uniform_random_batch_size_like", "unique",
-        "unique_with_counts", "zeros", "zeros_like"), "item 5"),
+        "spectral_norm", "square_error_cost", "uniform_random",
+        "uniform_random_batch_size_like", "unique", "unique_with_counts",
+        "zeros"), "item 5"),
 }
 
 # (reference module, port module): static.nn is a namespace class
 MODULES = {"dygraph": "dygraph", "nn": "nn", "static": "static",
-           "static.nn": "static.nn", "tensor_api": "tensor_api"}
+           "static.nn": "static.nn", "static.detection": "static.detection",
+           "tensor_api": "tensor_api"}
 
 
 def _module(package, name):

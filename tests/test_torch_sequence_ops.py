@@ -30,6 +30,7 @@ from paddle_tpu_torch.core.program import OpDesc
 from paddle_tpu_torch.core.registry import OpInfoMap
 from paddle_tpu_torch.device import op_device
 from paddle_tpu_torch.testing.decode_cases import DECODE_TYPES
+from paddle_tpu_torch.testing.rcnn_cases import RCNN_TYPES
 from paddle_tpu_torch.testing.seq_cases import SEQ_CASES, SEQ_TYPES, SLICE
 from test_torch_parity_ops import (cf_check_error, cf_check_forward,
                                    cf_check_gradient, cf_run_both)
@@ -60,7 +61,8 @@ def test_registry_holds_the_slice_against_the_reference():
     jops, pops = JaxOpInfoMap.instance()._ops, OpInfoMap.instance()._ops
     assert not set(pops) - set(jops)
     assert len(SEQ_TYPES) == 19 and \
-        len(set(pops) - DECODE_TYPES) == PORTED_BEFORE + 19 == 407
+        len(set(pops) - DECODE_TYPES - RCNN_TYPES) == \
+        PORTED_BEFORE + 19 == 407
     assert SEQ_TYPES <= set(pops)
     assert collections.Counter(ref_module(t) for t in SEQ_TYPES) == SLICE
     for mod in SLICE:

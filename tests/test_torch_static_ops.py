@@ -28,6 +28,7 @@ from paddle_tpu_torch.testing.cf_cases import CF_CASES
 from paddle_tpu_torch.testing.nn_cases import NN_CASES
 from paddle_tpu_torch.testing.decode_cases import DECODE_TYPES
 from paddle_tpu_torch.testing.seq_cases import SEQ_TYPES
+from paddle_tpu_torch.testing.rcnn_cases import RCNN_TYPES
 
 NEW_OPS = ("fill_constant", "gaussian_random", "uniform_random", "assign",
            "flatten2", "mul", "sum", "square", "top_k", "accuracy",
@@ -169,9 +170,10 @@ def test_port_registers_the_sixteen_ops():
     ops = OpInfoMap.instance()
     assert all(ops.has(t) for t in NEW_OPS)
     # 228 before the later slices' types (the rest of paddle.nn's, then
-    # control flow's, the sequence slice's and the decoding slice's)
+    # control flow's, the sequence, decoding and two-stage detection
+    # slices')
     later = {c.op for c in NN_CASES} | {c.op for c in CF_CASES} | \
-        SEQ_TYPES | DECODE_TYPES
+        SEQ_TYPES | DECODE_TYPES | RCNN_TYPES
     assert len(set(ops._ops) - later) == 228
     for t in NEW_OPS:
         jdef, pdef = JaxOpInfoMap.instance().get(t), ops.get(t)

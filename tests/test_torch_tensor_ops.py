@@ -35,6 +35,7 @@ from paddle_tpu_torch.testing.cf_cases import CF_CASES
 from paddle_tpu_torch.testing.decode_cases import DECODE_TYPES
 from paddle_tpu_torch.testing.nn_cases import NN_CASES
 from paddle_tpu_torch.testing.op_cases import CASES
+from paddle_tpu_torch.testing.rcnn_cases import RCNN_TYPES
 from paddle_tpu_torch.testing.seq_cases import SEQ_TYPES
 
 # reference module -> the op types this slice took from it
@@ -48,7 +49,7 @@ PORTED_BEFORE = 75
 # the op types later slices ported, by their case lists (the rest
 # of paddle.nn, then control flow, sequences and decoding)
 LATER = {c.op for c in NN_CASES} | {c.op for c in CF_CASES} | SEQ_TYPES \
-    | DECODE_TYPES
+    | DECODE_TYPES | RCNN_TYPES
 PARITY_TYPES = {"allclose", "bernoulli", "diag_v2", "empty", "eye",
                 "histogram", "isinf", "isnan", "randperm"}
 

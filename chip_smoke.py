@@ -253,6 +253,30 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      idle, host ms of each rcnn op, device ms by family), then the test
      forward (proposals, box_coder decode, multiclass_nms,
      detection_map), timed.
+  42. proto_model (right after phase 26): the resnet50 (fp32) and attn
+     (bf16) artifacts of phase 24 written again in the reference's
+     protobuf layout (a binary __model__ and LoDTensor parameter
+     streams, inference.proto_program), loaded through
+     io.load_inference_model and a Predictor: outputs bit-equal to the
+     JSON route's, the bf16 parameters bf16, K1 once an attn run;
+  43. dy2static_nmt, the main path of the dy2static slice: the base
+     Transformer of arXiv:1706.03762 (NMT: 6 + 6 layers, d_model 512, 8
+     heads, FFN 2048, a tied vocabulary of 37,000, fp32, eval) scored by
+     jit.to_static at batch 32, source and target 64 (bit-equal to the
+     eager forward, K1 18 launches a call, no host sync; ms a call,
+     tokens/s), and decoded greedily by a dygraph function converted by
+     dygraph.declarative (a while on a tensor condition, a TensorArray of
+     ids, an if on a tensor freezing finished rows): ids and scores
+     against the unconverted function, K1 6 + 12 launches a step, one
+     host sync an iteration; ms a step; peak memory; card against CPU on
+     4 rows within NMT_CPU_TOL; then K1 (with K2 and K3) at its shape,
+     B32 S64 H8 D64 fp32, plain and causal, against the plain versions
+     and timed as in phase 3;
+  44. static_decoders: the contrib decoder's TrainingDecoder (4 Adagrad
+     steps) and BeamSearchDecoder (level-2 LoD feeds), rnn / birnn /
+     dynamic_decode, and one case of each contrib_layers builder with a
+     registered type (paddle_tpu_torch/testing/decoder_cases.py), card
+     against CPU. Phases 42-44 print their command time together.
 Phase 3 also times K1-K3 in fp16 at BERT-base.
 The last two lines are the kernels' JSON record (each kernel at fp32,
 its launches from phase 7 and, as launches_eager_bert, from phase 27;
@@ -260,8 +284,9 @@ as <name>_bf16 at bf16, its launches from phase 8; as <name>_fp16 at
 fp16, its launches from phase 6's fp16 loop; as <name>_gpt at GPT-3
 1.3B's shape, its launches from phase 17; the rows of the dtype that
 reaches them on the static ERNIE step with launches_static_ernie, and
-as <name>_ernie at its shape with its launches, from phase 23) and {"ok": true, "device":
-{...}}. Phase 18 checks its own K1-K3 launches. The [predictor] line
+as <name>_ernie at its shape with its launches, from phase 23;
+flash_fwd_nmt and flash_fwd_nmt_causal at the NMT's shape, with the
+launches of each route in phase 43) and {"ok": true, "device": {...}}. Phase 18 checks its own K1-K3 launches. The [predictor] line
 says how a bfloat16 fetch comes to the host (ml_dtypes' bfloat16, or
 float32 where ml_dtypes does not import).
 """
@@ -852,23 +877,39 @@ FLASH_ROUTE_CASES = [("head dim 32", 2, 128, 8, 32, torch.float32, "bshd"),
 
 
 @contextlib.contextmanager
-def op_dtypes():
-    """While active, counts the dtypes of q, k and v the flash_attention
-    op is called with."""
+def flash_op_calls(key):
+    """While active, counts the flash_attention op's calls by
+    ``key(inputs, attrs)``."""
     from paddle_tpu_torch.core.registry import OpInfoMap
     opdef = OpInfoMap.instance().get("flash_attention")
     real = opdef.compute
     seen = collections.Counter()
 
     def spy(inputs, attrs):
-        seen[tuple(str(inputs[s][0].dtype).split(".")[-1]
-                   for s in ("Q", "K", "V"))] += 1
+        seen[key(inputs, attrs)] += 1
         return real(inputs, attrs)
     opdef.compute = spy
     try:
         yield seen
     finally:
         opdef.compute = real
+
+
+def op_dtypes():
+    """While active, counts the dtypes of q, k and v the flash_attention
+    op is called with."""
+    return flash_op_calls(lambda inputs, attrs: tuple(
+        str(inputs[s][0].dtype).split(".")[-1] for s in ("Q", "K", "V")))
+
+
+def op_causal():
+    """While active, counts the flash_attention op's calls by route: the
+    kernels' ("causal" / "plain") or the blockwise one ("bias")."""
+    def route(inputs, attrs):
+        if inputs.get("Bias") or attrs.get("q_offset"):
+            return "bias"
+        return "causal" if attrs.get("causal") else "plain"
+    return flash_op_calls(route)
 
 
 def _flash_op(fa, dev, ts, causal, layout):
@@ -3443,6 +3484,23 @@ def predict(tpt, path, feed):
     from paddle_tpu_torch import inference
     pred = inference.create_predictor(inference.Config(path))
     return pred, pred.run([feed[n] for n in pred.get_input_names()])
+
+
+def resave_reference(tpt, src, dst, params_filename=None):
+    """The JSON-IR inference model at ``src`` loaded through
+    io.load_inference_model and written again at ``dst`` in the
+    reference's layout (a protobuf ``__model__`` and LoDTensor parameter
+    streams, one file a parameter unless ``params_filename``) by
+    inference.proto_program.save_reference_inference_model: (feed names,
+    fetch names)."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.inference.proto_program import (
+        save_reference_inference_model)
+    exe, scope = tpt.Executor(), tpt.Scope()
+    prog, feeds, fetches = io.load_inference_model(src, exe, scope=scope)
+    save_reference_inference_model(dst, feeds, fetches, prog, scope=scope,
+                                   params_filename=params_filename)
+    return feeds, fetches
 
 
 def rel_err(got, want):
@@ -6845,6 +6903,543 @@ def phase_faster_rcnn(tpt, dev, cfg=None):
     return med
 
 
+# The base Transformer of Vaswani et al. 2017 (arXiv:1706.03762, Table 3
+# "base", sections 3.4 and 5.1): 6 encoder and 6 decoder layers, d_model
+# 512, 8 heads (head dim 64), FFN 2048 with ReLU, post-norm, dropout 0.1
+# (off here: eval), a source and target vocabulary of 37,000 shared, the
+# embeddings tied to the pre-softmax projection and scaled by sqrt(512),
+# sinusoid positions. Scoring takes teacher-forced pairs at batch 32,
+# source and target 64 tokens; greedy decoding goes to 64 tokens (the
+# paper: beam 4, length penalty 0.6). Ids are seeded random, weights
+# seeded random, lengths fixed (no padding mask, so no attention takes
+# the bias route).
+NMT = dict(vocab=37000, d_model=512, heads=8, layers=6, ffn=2048,
+           dropout=0.1, batch=32, src_len=64, tgt_len=64, max_len=64,
+           bos=1, eos=2)
+# Card against CPU (fp32, TF32 off): relative Frobenius error of the
+# log-probabilities of 4 scored rows and of the first decode step's
+# logits. K1's bound against float64 is 3e-5 (FP64_BOUND[1.0]) a call;
+# a scored row passes through 18 attentions (6 encoder, 6 causal and 6
+# cross), so 18 x 3e-5 = 5.4e-4, rounded up to 1e-3 for the GEMMs' and
+# LayerNorms' fp32 rounding in another order on each device.
+NMT_CPU_TOL = 1e-3
+NMT_CPU_ROWS = 4
+# the converted decode against the same function run eagerly, on the card
+NMT_SCORE_TOL = 1e-6
+
+
+def sinusoid_table(length, d_model):
+    """The sinusoid position encoding of section 3.5: [length, d_model]
+    fp32, sin on the even columns and cos on the odd ones."""
+    pos = np.arange(length, dtype=np.float64)[:, None]
+    rate = np.power(10000.0, np.arange(0, d_model, 2) / d_model)[None, :]
+    table = np.zeros((length, d_model), np.float32)
+    table[:, 0::2] = np.sin(pos / rate)
+    table[:, 1::2] = np.cos(pos / rate)
+    return table
+
+
+def nmt_model(api, cfg=NMT):
+    """The Transformer translation model as a user writes it against
+    ``api`` (either package's: nn, F, matmul, to_tensor; port_nmt_api):
+    one embedding for source and target, tied to the output projection;
+    ``nn.Transformer`` for the stacks. ``forward(src, tgt)`` gives the
+    log-probabilities [B, T, vocab] of the teacher-forced target;
+    ``encode``, ``decode`` and ``logits`` are the pieces the greedy
+    decoder calls."""
+    nn, F = api.nn, api.F
+    scale = math.sqrt(cfg["d_model"])
+    length = max(cfg["src_len"], cfg["tgt_len"], cfg["max_len"])
+
+    class TransformerNMT(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            # N(0, d_model^-1/2), as the paper's implementations start the
+            # shared embedding: scaled by sqrt(d_model) it has unit
+            # variance beside the positions
+            self.embed = nn.Embedding(
+                cfg["vocab"], cfg["d_model"], weight_attr=nn.ParamAttr(
+                    initializer=nn.initializer.Normal(0.0, 1.0 / scale)))
+            self.transformer = nn.Transformer(
+                cfg["d_model"], cfg["heads"], cfg["layers"], cfg["layers"],
+                cfg["ffn"], dropout=cfg["dropout"])
+            self.pos = api.to_tensor(sinusoid_table(length, cfg["d_model"]))
+
+        def embed_tokens(self, ids):
+            return self.embed(ids) * scale + self.pos[:ids.shape[1]]
+
+        def encode(self, src):
+            return self.transformer.encoder(self.embed_tokens(src))
+
+        def decode(self, tgt, memory):
+            return self.transformer.decoder(self.embed_tokens(tgt), memory)
+
+        def logits(self, h):
+            return api.matmul(h, self.embed.weight, transpose_y=True)
+
+        def forward(self, src, tgt):
+            h = self.decode(tgt, self.encode(src))
+            return F.log_softmax(self.logits(h), axis=-1)
+
+    return TransformerNMT()
+
+
+def nmt_greedy_fn(api, model, max_steps, bos, eos):
+    """The greedy decoder as a user writes it in dygraph, to be converted
+    by ``declarative`` (either package's ``api``; port_nmt_api). Its
+    ``while`` runs on the tensor condition ``i < max_len and not
+    finished``, the chosen ids go into a TensorArray, each step runs the
+    causal decoder over the fixed [B, max_len] prefix buffer and projects
+    only that step's row, and an ``if`` on a tensor freezes the finished
+    rows (their id stays eos, their score stops growing). Returns one
+    tensor [B, max_len + 1] fp32: the ids, then each row's summed
+    log-probability (the reference's to_static returns one tensor)."""
+    F = api.F
+    TensorArray = api.TensorArray
+
+    def greedy_decode(src):
+        max_len = max_steps
+        memory = model.encode(src)
+        b = src.shape[0]
+        buf = api.full([b, max_len], bos, "int64")
+        pos = api.reshape(api.arange(max_len), [1, max_len])
+        eos_ids = api.full([b], eos, "int64")
+        no_score = api.zeros([b], "float32")
+        ids = TensorArray((b,), max_size=max_len, dtype="int64")
+        finished = api.zeros([b], "float32")
+        score = api.zeros([b], "float32")
+        i = 0
+        while i < max_len and not finished.min():
+            h = model.decode(buf, memory)
+            sel = api.unsqueeze((pos == i).astype("float32"), [2])
+            logp = F.log_softmax(model.logits(api.sum(h * sel, axis=1)),
+                                 axis=-1)
+            nxt = api.argmax(logp, axis=-1)
+            best = api.max(logp, axis=-1)
+            if finished.max() > 0:
+                done = finished > 0.5
+                nxt = api.where(done, eos_ids, nxt)
+                best = api.where(done, no_score, best)
+            ids = ids.write(i, nxt)
+            score = score + best
+            hit = (nxt == eos_ids).astype("float32")
+            finished = finished + hit - finished * hit
+            buf = api.where(pos == i + 1, api.unsqueeze(nxt, [1]), buf)
+            i = i + 1
+        return api.concat([api.transpose(ids.stack(), [1, 0])
+                           .astype("float32"),
+                           api.unsqueeze(score, [1])], axis=1)
+
+    return greedy_decode
+
+
+def port_nmt_api():
+    """The port's surface as the NMT script takes it (the CPU test hands
+    it the JAX package's)."""
+    import types
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph, jit, nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.tensor_array import TensorArray
+    return types.SimpleNamespace(
+        nn=nn, F=F, jit=jit, dygraph=dygraph, TensorArray=TensorArray,
+        to_tensor=pt.to_tensor, matmul=pt.matmul, full=pt.full,
+        zeros=pt.zeros, arange=pt.arange, reshape=pt.reshape,
+        unsqueeze=pt.unsqueeze, sum=pt.sum, max=pt.max, argmax=pt.argmax,
+        where=pt.where, concat=pt.concat,
+        transpose=lambda x, perm: x.permute(perm))
+
+
+def nmt_first_logits(api, model, src, cfg=NMT):
+    """The first greedy step's logits [B, vocab]: the causal decoder over
+    the all-bos prefix buffer, row 0 projected."""
+    b = src.shape[0]
+    buf = api.full([b, cfg["max_len"]], cfg["bos"], "int64")
+    h = model.decode(buf, model.encode(src))
+    return model.logits(h[:, 0])
+
+
+def nmt_steps(ids, eos, max_len):
+    """The iterations the greedy loop ran: until every row has chosen eos
+    (a row's first eos at step p finishes it after p + 1), or max_len;
+    and whether it stopped on the finished rows."""
+    firsts = [int(np.nonzero(row == eos)[0][0]) + 1 if (row == eos).any()
+              else max_len + 1 for row in ids]
+    steps = min(max(firsts), max_len)
+    return steps, max(firsts) <= max_len
+
+
+def nmt_freezing_eos(ids):
+    """An eos for the decode whose ids [B, max_len] are ``ids`` when no
+    row stops: the first id row 0 chose that some row had not chosen by
+    that step (so row 0 stops there and that row goes on); row 0's first
+    id when every row chose alike."""
+    for j, tok in enumerate(ids[0]):
+        if not (ids[:, :j + 1] == tok).any(1).all():
+            return int(tok)
+    return int(ids[0, 0])
+
+
+def phase_nmt_kernels(fa, dev):
+    """K1 (with K2 and K3 beside it) at the NMT's attention shape, B32 S64
+    H8 D64 fp32, plain (encoder self- and cross-attention) and causal
+    (decoder self-attention): against the plain versions, then
+    phase_timing's CUDA-event times, bounds, plain and SDPA times.
+    Returns ({causal: row of K1}, {causal: K1's largest error})."""
+    rows, errs = {}, {}
+    for causal in (False, True):
+        shape = (NMT["batch"], NMT["src_len"], NMT["heads"],
+                 NMT["d_model"] // NMT["heads"], causal)
+        b, s, h, d, _ = shape
+        gen = torch.Generator(device=dev).manual_seed(31 + causal)
+        q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                      for _ in range(4))
+        print(f"[nmt_kernels] B{b} S{s} H{h} D{d} causal={causal} float32")
+        found, _ = kernels_against_plain(fa, q, k, v, g, causal,
+                                         torch.float32)
+        errs[causal] = found["flash_fwd"]
+        rows[causal] = phase_timing(fa, dev, torch.float32, shape)[
+            "flash_fwd"]
+    return rows, errs
+
+
+def phase_dy2static_nmt(tpt, fa, dev):
+    """The main path of the dy2static slice: the base Transformer (NMT:
+    6 + 6 layers, d_model 512, 8 heads, FFN 2048, vocabulary 37,000 tied,
+    fp32, TF32 off, eval) built from seed 0.
+
+    Scoring: jit.to_static(model) on teacher-forced pairs (batch 32,
+    source and target 64): the log-probabilities bit for bit against the
+    eager forward under no_grad; K1 18 launches a call (12 plain, 6
+    causal), K2 and K3 none, nothing on the blockwise route, no host
+    sync; ms a call, tokens/s. Greedy decoding: nmt_greedy_fn through
+    dygraph.declarative to 64 tokens: ids equal and scores within
+    NMT_SCORE_TOL against the same
+    function run without conversion; K1 6 + 12 launches a step, one host
+    sync an iteration (the while's condition), plus one where the loop
+    stops on its finished rows. First with an eos no row picks (all 64
+    steps, timed: ms a step), then with an eos row 0 chose there and
+    some other row had not (nmt_freezing_eos), so row 0 stops and the
+    converted if freezes it. Peak memory. Card against
+    CPU (the plain version of K1 there) from the same weights: the
+    log-probabilities of NMT_CPU_ROWS scored rows and the first step's
+    logits, by relative Frobenius error within NMT_CPU_TOL; ids are not
+    compared across devices (near-ties of argmax under random weights
+    would make that a flaky check). Returns K1-K3's launches over the
+    counted scoring call and the two counted decodes, and K1's by
+    route."""
+    from paddle_tpu_torch.convert import load_state_dict
+    cfg = NMT
+    api = port_nmt_api()
+    tpt.set_device(dev)
+    tpt.seed(0)
+    t0 = time.perf_counter()
+    model = nmt_model(api, cfg)
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    b, s, t, max_len = cfg["batch"], cfg["src_len"], cfg["tgt_len"], \
+        cfg["max_len"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src = torch.randint(3, cfg["vocab"], (b, s), generator=gen, device=dev)
+    tgt = torch.randint(3, cfg["vocab"], (b, t), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"[dy2static_nmt] Transformer base (6 + 6 layers, d_model "
+          f"{cfg['d_model']}, {cfg['heads']} heads, FFN {cfg['ffn']}, "
+          f"vocabulary {cfg['vocab']} tied): {n_params} parameters "
+          f"(Table 3: 65M) built in {time.perf_counter() - t0:.1f} s")
+    scored = api.jit.to_static(model)
+    check(isinstance(scored, api.jit.TracedLayer), "to_static(model)")
+    with torch.no_grad():
+        eager = model(src, tgt)
+    scored(src, tgt)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in fa.WRAPPERS:
+        w.launches = 0
+    blockwise = fa.blockwise_route.calls
+    with op_causal() as routes:
+        out = scored(src, tgt)
+        torch.cuda.synchronize()
+    score_launches = {w.__name__: w.launches for w in fa.WRAPPERS}
+    score_routes = dict(routes)
+    same = torch.equal(out, eager)
+    print(f"[dy2static_nmt] scoring: log-probabilities "
+          f"{tuple(out.shape)} {str(out.dtype).split('.')[-1]}, finite "
+          f"{bool(torch.isfinite(out).all())}, "
+          f"{'bit-equal to' if same else 'DIFFERENT FROM'} the eager "
+          f"forward; launches {score_launches}, op routes {score_routes}")
+    check(tuple(out.shape) == (b, t, cfg["vocab"]) and
+          bool(torch.isfinite(out).all()), "scoring output")
+    check(same, "to_static scoring differs from the eager forward")
+    layers = cfg["layers"]
+    check(score_launches == {"flash_fwd": 3 * layers, "flash_bwd_dq": 0,
+                             "flash_bwd_dkv": 0},
+          f"K1-K3 launches a scoring call: {score_launches}")
+    check(score_routes == {"plain": 2 * layers, "causal": layers},
+          f"flash_attention routes a scoring call: {score_routes}")
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scored(src, tgt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    score_ms = sorted(times)[len(times) // 2]
+    prof = profile_call(lambda: scored(src, tgt))
+    print(f"[dy2static_nmt] scoring ms a call (median of 10) {score_ms:.3f}"
+          f"  tokens/s {b * t / score_ms * 1e3:.1f}  (target tokens; "
+          f"{b * (s + t) / score_ms * 1e3:.1f} source + target); profiled "
+          f"call: {prof['launches']} kernel launches, {prof['syncs']} host "
+          f"syncs, device busy {prof['busy_ms']:.3f} of "
+          f"{prof['wall_ms']:.3f} ms")
+    check(prof["syncs"] == 0, f"scoring synced the host {prof['syncs']} "
+                              f"times")
+    # a decode with an eos no row picks runs all max_len steps; then eos
+    # is an id row 0 chose there that some other row had not chosen by
+    # then, so row 0 stops and the converted if freezes it while others
+    # go on (random weights may make every row alike: then row 0's
+    # first id, and all rows stop at once)
+    with torch.no_grad():
+        first = nmt_first_logits(api, model, src, cfg)
+    dec_launches = {w.__name__: 0 for w in fa.WRAPPERS}
+    dec_routes = collections.Counter()
+    for eos in (-1, None):
+        if eos is None:
+            eos = nmt_freezing_eos(free_ids)
+        fn = nmt_greedy_fn(api, model, max_len, cfg["bos"], eos)
+        decode = api.dygraph.declarative(fn)
+        decode(src)                          # warm-up
+        before = {w.__name__: w.launches for w in fa.WRAPPERS}
+        result = {}
+        with op_causal() as routes:
+            prof = profile_call(lambda: result.setdefault("out",
+                                                          decode(src)))
+        launched = {w.__name__: w.launches - before[w.__name__]
+                    for w in fa.WRAPPERS}
+        got = result["out"]
+        ids = got[:, :-1].cpu().numpy().astype(np.int64)
+        steps, stopped = nmt_steps(ids, eos, max_len)
+        with torch.no_grad():
+            plain = fn(src)
+        plain_ids = plain[:, :-1].cpu().numpy().astype(np.int64)
+        score_err = (got[:, -1] - plain[:, -1]).abs().max().item()
+        want_syncs = steps + (1 if stopped else 0)
+        print(f"[dy2static_nmt] greedy decode (declarative, max_len "
+              f"{max_len}, eos {eos}): {steps} steps, rows finished "
+              f"{int((ids == eos).any(1).sum())} of {b}; ids "
+              f"{'equal' if np.array_equal(ids, plain_ids) else 'DIFFER'}"
+              f" and scores max abs err {score_err:.3e} (bound "
+              f"{NMT_SCORE_TOL:g}) against the unconverted function; "
+              f"launches {launched}, op routes {dict(routes)}; host syncs "
+              f"{prof['syncs']} (one an iteration"
+              f"{', one more to stop' if stopped else ''}: {want_syncs}); "
+              f"{prof['launches']} kernel launches, device busy "
+              f"{prof['busy_ms']:.3f} of {prof['wall_ms']:.3f} ms")
+        check(np.array_equal(ids, plain_ids),
+              "the converted decode's ids differ from the unconverted run")
+        check(score_err <= NMT_SCORE_TOL, "decode scores")
+        if eos < 0:
+            free_ids, free_steps, free_decode = ids, steps, decode
+            print(f"[dy2static_nmt] rows alike: {len({tuple(r) for r in ids})} "
+                  f"distinct of {b}; row 0 starts {ids[0, :8].tolist()}")
+        else:
+            at = int(np.nonzero(ids[0] == eos)[0][0])
+            check(bool((ids[0, at:steps] == eos).all()),
+                  "row 0 was not frozen at eos")
+        check(launched == {"flash_fwd": layers * (1 + 2 * steps),
+                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+              f"K1-K3 launches a decode of {steps} steps: {launched}")
+        check(dict(routes) == {"plain": layers * (1 + steps),
+                               "causal": layers * steps},
+              f"flash_attention routes a decode: {dict(routes)}")
+        check(prof["syncs"] == want_syncs,
+              f"decode host syncs {prof['syncs']}, not {want_syncs}")
+        for name, n in launched.items():
+            dec_launches[name] += n
+        dec_routes.update(routes)
+    check(free_steps == max_len,
+          f"the eos-free decode ran {free_steps} steps")
+    check(fa.blockwise_route.calls == blockwise,
+          "the NMT took the blockwise route")
+    steps = free_steps
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        free_decode(src)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    dec_ms = sorted(times)[1]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[dy2static_nmt] decode of {steps} steps, ms (median of 3) "
+          f"{dec_ms:.3f}: {dec_ms / steps:.3f} ms a step, "
+          f"{b * steps / dec_ms * 1e3:.1f} tokens/s; peak memory "
+          f"{peak:.3f} GiB")
+    # card against CPU from the same weights
+    rows = NMT_CPU_ROWS
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    tpt.set_device("cpu")
+    try:
+        cpu_model = nmt_model(api, cfg)
+        load_state_dict(cpu_model, state)
+        cpu_model.eval()
+        with torch.no_grad():
+            cpu_lp = cpu_model(src[:rows].cpu(), tgt[:rows].cpu())
+            cpu_first = nmt_first_logits(api, cpu_model, src[:rows].cpu(),
+                                         cfg)
+    finally:
+        tpt.set_device(dev)
+    errs = [rel_err(out[:rows].cpu().numpy(), cpu_lp.numpy()),
+            rel_err(first[:rows].cpu().numpy(), cpu_first.numpy())]
+    print(f"[dy2static_nmt] card vs CPU ({rows} rows; K1 against its plain "
+          f"version): log-probabilities rel err {errs[0]:.3e}, first "
+          f"step's logits rel err {errs[1]:.3e} (bound {NMT_CPU_TOL:g}: "
+          f"18 attentions x K1's 3e-5, rounded up); ids not compared "
+          f"across devices (argmax near-ties under random weights)")
+    check(max(errs) <= NMT_CPU_TOL, "card against CPU")
+    print(card_line())
+    launches = {name: score_launches[name] + dec_launches[name]
+                for name in score_launches}
+    del model, scored, out, eager, cpu_model
+    torch.cuda.empty_cache()
+    return launches, {k: score_routes[k] + dec_routes[k]
+                      for k in ("plain", "causal")}
+
+
+DECODER_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _close(got, want, what):
+    """Equal integers and LoDs, floats within DECODER_TOL."""
+    (g, glod), (w, wlod) = got, want
+    ok = g.shape == w.shape and g.dtype == w.dtype and \
+        [list(v) for v in (glod or [])] == [list(v) for v in (wlod or [])]
+    if ok:
+        ok = (np.allclose(g, w, **DECODER_TOL) if
+              np.issubdtype(g.dtype, np.floating) else np.array_equal(g, w))
+    check(ok, f"{what}: card against CPU")
+
+
+def phase_static_decoders(tpt, dev):
+    """The decoders slice's static programs on the card against the CPU,
+    from the same startup values and feeds, at the CPU tests' sizes
+    (paddle_tpu_torch/testing/decoder_cases.py): the contrib decoder's
+    TrainingDecoder for 4 Adagrad steps (the losses) and
+    BeamSearchDecoder on level-2 LoD feeds (the sentences, their LoD and
+    scores); rnn / birnn with and without sequence_length and
+    dynamic_decode; one case of each contrib_layers builder whose op type
+    the port registers (random ones by what their seed does not
+    decide). Floats within DECODER_TOL, integers and LoDs equal."""
+    from paddle_tpu_torch.testing import decoder_cases as dc
+    api = dc.port_api()
+    t0 = time.perf_counter()
+
+    def both(main, startup, fetch, feed, runs=1, params=None):
+        values = dc.startup_values(startup)
+        values.update(params or {})
+        out = []
+        for d in (dev, "cpu"):
+            tpt.set_device(d)
+            out.append(dc.run_program(
+                api, tpt.Executor(d),
+                lambda v, lod, d=d: tpt.TpuTensor(v, lod, device=d), main,
+                values, feed, fetch, runs))
+        tpt.set_device(dev)
+        return out
+
+    tpt.set_device(dev)
+    main, startup, fetch = dc.training_decoder_program(api)
+    card, cpu = both(main, startup, fetch, dc.training_feeds(),
+                     dc.TRAIN_STEPS)
+    losses = [float(r[0][0]) for r in card]
+    for i, (c, w) in enumerate(zip(card, cpu)):
+        _close(c[0], w[0], f"TrainingDecoder loss {i}")
+    check(losses[-1] < losses[0], "the training decoder's loss")
+    print(f"[static_decoders] TrainingDecoder, {dc.TRAIN_STEPS} Adagrad "
+          f"steps: losses {losses} on the card, equal to the CPU's")
+    main, startup, fetch = dc.beam_decoder_program(api)
+    (card,), (cpu,) = both(main, startup, fetch, dc.beam_feeds())
+    _close(card[0], cpu[0], "BeamSearchDecoder ids")
+    _close(card[1], cpu[1], "BeamSearchDecoder scores")
+    print(f"[static_decoders] BeamSearchDecoder: {card[0][0].size} ids on "
+          f"LoD {card[0][1]}, equal to the CPU's")
+    for kind in dc.RNN_KINDS:
+        main, startup, fetch, feed = dc.rnn_program(api, kind)
+        (card,), (cpu,) = both(main, startup, fetch, feed)
+        for i, (c, w) in enumerate(zip(card, cpu)):
+            _close(c, w, f"{kind} fetch {i}")
+    print(f"[static_decoders] {', '.join(dc.RNN_KINDS)}: equal to the "
+          f"CPU's")
+    for name, case in dc.CONTRIB.items():
+        main, startup, fetch = dc.contrib_program(api, name)
+        card, cpu = both(main, startup, fetch, case["feed"], case["runs"],
+                         case["params"])
+        for c_run, w_run in zip(card, cpu):
+            if case["check"] == "value":
+                for i, (c, w) in enumerate(zip(c_run, w_run)):
+                    _close(c, w, f"{name} fetch {i}")
+            elif case["check"] == "rows":
+                check(sorted(map(tuple, c_run[0][0])) == sorted(map(
+                    tuple, case["feed"]["x"])), f"{name}: not a shuffle")
+            else:
+                for c, w in zip(c_run, w_run):
+                    check(c[0].shape == w[0].shape, f"{name} shapes")
+                check(c_run[0][0][:, 0].tolist() == [1, 2, 2],
+                      f"{name}: the positive column")
+    print(f"[static_decoders] {len(dc.CONTRIB)} contrib_layers builders "
+          f"({', '.join(dc.CONTRIB)}): card equal to CPU; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_proto_model(tpt, fa, dev, paths, workdir):
+    """The reference's protobuf format on the card: the resnet50 (fp32)
+    and attn (bf16) artifacts phase_predictor saved, written again by
+    save_reference_inference_model (resave_reference; a protobuf
+    __model__ and one LoDTensor stream a parameter), loaded through
+    io.load_inference_model (Executor.run) and through a Predictor: each
+    output bit-equal to the JSON route's Predictor on the same feed, the
+    bf16 parameters bf16; K1 once an attn run."""
+    from paddle_tpu_torch import io
+    import os
+    tpt.set_device(dev)
+    rs = np.random.RandomState(11)
+    rows = {"resnet50": 8, "attn": 4}
+    for name, path in paths.items():
+        dst = f"{workdir}/{name}_proto"
+        t0 = time.perf_counter()
+        feeds, fetches = resave_reference(tpt, path, dst)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(dst, f))
+                   for f in os.listdir(dst))
+        feed = serve_feed(name, rows[name], rs)
+        _, (want,) = predict(tpt, path, feed)
+        t0 = time.perf_counter()
+        k1 = fa.flash_fwd.launches
+        pred, (got,) = predict(tpt, dst, feed)
+        launches = fa.flash_fwd.launches - k1
+        load_s = time.perf_counter() - t0
+        exe, scope = tpt.Executor(), tpt.Scope()
+        prog, _, fetch = io.load_inference_model(dst, exe, scope=scope)
+        direct, = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+        dtypes_ = {str(scope.find_var(n).get().value.dtype).split(".")[-1]
+                   for n, v in prog.global_block().vars.items()
+                   if v.persistable and v.type == "LOD_TENSOR"}
+        print(f"[proto_model] {name}: {len(os.listdir(dst))} files, "
+              f"{size} bytes, written in {save_s:.2f} s; parameters "
+              f"{sorted(dtypes_)}; feeds {feeds} fetches {fetches}; "
+              f"Predictor (load and run {load_s:.2f} s) "
+              f"{'bit-equal to' if np.array_equal(got, want) else 'DIFFERS FROM'}"
+              f" the JSON route, Executor.run "
+              f"{'bit-equal' if np.array_equal(direct, want) else 'DIFFERS'}"
+              f"; K1 launches a run {launches}")
+        check(np.array_equal(got, want) and np.array_equal(direct, want),
+              f"{name}: the protobuf artifact predicts other bits")
+        check(dtypes_ == ({"bfloat16"} if name == "attn" else {"float32"}),
+              f"{name}: parameter dtypes {dtypes_}")
+        check(launches == (1 if name == "attn" else 0),
+              f"{name}: K1 launched {launches} times in one run")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6896,6 +7491,9 @@ def main():
     paths = phase_predictor(tpt, fa, dev, workdir)
     served, cold = phase_serve(tpt, fa, dev, paths, workdir)
     phase_serve_restart(tpt, dev, paths, workdir, served, cold)
+    t_new = time.perf_counter()
+    phase_proto_model(tpt, fa, dev, paths, workdir)
+    new_phases_s = time.perf_counter() - t_new
     eager_launches = phase_eager_bert(tpt, fa, dev)
     phase_tensor_api(dev)
     phase_nn_api(dev)
@@ -6911,13 +7509,22 @@ def main():
     phase_crnn(tpt, dev)
     phase_rcnn_ops(dev)
     phase_faster_rcnn(tpt, dev)
+    t_new = time.perf_counter()
+    _, nmt_routes = phase_dy2static_nmt(tpt, fa, dev)
+    phase_static_decoders(tpt, dev)
+    new_phases_s += time.perf_counter() - t_new
+    print(f"[time] dy2static_nmt, static_decoders and proto_model: "
+          f"{new_phases_s:.1f} s of command time")
+    nmt_rows, nmt_errs = phase_nmt_kernels(fa, dev)
     # fp32 rows: launches on the O1 path (phase bert), beside those of the
     # eager path (phase eager_bert); bf16 rows: on the O2 path (phase
     # bert_o2); fp16 rows: in the fp16 eager loop of phase tiny_o2 (no
     # fp16 main path); _gpt rows: at GPT-3 1.3B's shape, launches on its
     # O2 path (phase gpt_o2); the rows of the dtype that reaches K1-K3 on
     # the static ERNIE step also count its launches (phase static_ernie),
-    # and _ernie rows time them at its shape
+    # and _ernie rows time them at its shape; flash_fwd_nmt rows time K1
+    # at the NMT's shape, plain and causal, with the launches of each
+    # route in phase dy2static_nmt
     suffix = {torch.float32: "", torch.bfloat16: "_bf16",
               torch.float16: "_fp16"}
     record = {"kernels": [
@@ -6936,7 +7543,12 @@ def main():
         dict(name=name + "_ernie", route="cuda", source=SOURCE,
              replaces=REPLACES[name], launches=ernie_launches[name],
              max_abs_err=ernie_errs[name], **ernie_rows[name])
-        for name in REPLACES]}
+        for name in REPLACES] + [
+        dict(name="flash_fwd_nmt" + ("_causal" if causal else ""),
+             route="cuda", source=SOURCE, replaces=REPLACES["flash_fwd"],
+             launches=nmt_routes["causal" if causal else "plain"],
+             max_abs_err=nmt_errs[causal], **nmt_rows[causal])
+        for causal in (False, True)]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -69,7 +69,7 @@ from .enforce import (EnforceNotMet, InvalidArgumentError, NotFoundError,
                       PreconditionNotMetError, UnimplementedError, enforce,
                       op_scope)
 from .program import GRAD_SUFFIX, Block, OpDesc, Program, default_main_program
-from .registry import OpInfoMap, vjp_backward, vjp_forward
+from .registry import OpInfoMap, not_ported, vjp_backward, vjp_forward
 from .scope import Scope, global_scope
 from .tensor import TpuTensor
 
@@ -550,7 +550,8 @@ class Executor:
                 record = records.pop(an.pairs[idx])
             _run_generic_grad(op, env, record)
             return
-        raise NotFoundError(f"no kernel registered for op {op.type!r}")
+        raise NotFoundError(f"no kernel registered for op {op.type!r}"
+                            f"{not_ported(op.type)}")
 
     @staticmethod
     def _gather_state(scope: Scope, names, dev) -> Dict[str, torch.Tensor]:

@@ -54,6 +54,19 @@ class OpDef:
         self.non_differentiable_inputs = non_differentiable_inputs
 
 
+# op types of the JAX package that a later ROADMAP Queue 1 item brings,
+# which builders of the port already write: the error of running one
+# names its item
+NOT_PORTED = {"pull_box_extended_sparse": "8 (ops/ps_ops.py)"}
+
+
+def not_ported(op_type: str) -> str:
+    """What the error of an unregistered ``op_type`` ends with: the
+    ROADMAP item that brings it, where one does."""
+    item = NOT_PORTED.get(op_type)
+    return f": not ported yet, ROADMAP Queue 1 item {item}" if item else ""
+
+
 class OpInfoMap:
     """Global op table (ref: framework/op_info.h OpInfoMap)."""
 
@@ -78,7 +91,7 @@ class OpInfoMap:
         if op is None:
             raise NotFoundError(
                 f"op {op_type!r} has no registered kernel "
-                f"({len(self._ops)} ops registered)")
+                f"({len(self._ops)} ops registered){not_ported(op_type)}")
         return op
 
     def has(self, op_type: str) -> bool:

@@ -11,10 +11,11 @@ from .tracer import (amp_level, amp_state, no_grad, set_amp_level,  # noqa: F401
                      trace_op)
 from .varbase import Parameter, VarBase, to_variable  # noqa: F401
 from .compat1x import (  # noqa: F401
-    NCE, BilinearTensorProduct, GRUUnit, ParallelEnv, SaveLoadConfig, TranslatedLayer, TreeConv, disable_dygraph,
-    enable_dygraph, enabled, load, load_dygraph, no_grad_, prepare_context,
-    save, save_dygraph, set_code_level, set_verbosity, start_gperf_profiler,
-    stop_gperf_profiler)
+    NCE, BilinearTensorProduct, GRUUnit, ParallelEnv, SaveLoadConfig,
+    TranslatedLayer, TreeConv, declarative, disable_dygraph,
+    dygraph_to_static_func, enable_dygraph, enabled, load, load_dygraph,
+    no_grad_, prepare_context, save, save_dygraph, set_code_level,
+    set_verbosity, start_gperf_profiler, stop_gperf_profiler)
 
 _LR_1X = ("CosineDecay", "ExponentialDecay", "InverseTimeDecay",
           "LambdaDecay", "LinearLrWarmup", "MultiStepDecay",
@@ -34,9 +35,12 @@ _NN_1X = {"PRelu": "PReLU", "InstanceNorm": "InstanceNorm2D"}
 
 
 def __getattr__(name):
-    """The 1.x learning-rate names and nn aliases (resolved late: the
-    optimizer and nn import dygraph), and the names not ported yet,
-    which raise with their ROADMAP item."""
+    """The 1.x learning-rate names, nn aliases and ``TracedLayer``
+    (resolved late: the optimizer, nn and jit import dygraph), and the
+    names not ported yet, which raise with their ROADMAP item."""
+    if name == "TracedLayer":
+        from ..jit import TracedLayer
+        return TracedLayer
     if name in _LR_1X:
         from .. import optimizer
         return getattr(optimizer, name)

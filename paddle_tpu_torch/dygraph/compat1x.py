@@ -2,11 +2,12 @@
 
 Port of ``paddle_tpu/dygraph/compat1x.py:16-308``: mode control, the
 single-process parallel environment, state-dict and layer persistence,
-``TranslatedLayer`` over the inference-model IO, the dy2static and
+``TranslatedLayer`` over the inference-model IO, ``declarative`` and
+``dygraph_to_static_func`` (``jit.to_static``), the dy2static and
 profiler switches, and the 1.x layers ``BilinearTensorProduct``,
-``GRUUnit``, ``NCE`` and ``TreeConv``. ``declarative`` and the names
-beside it in :data:`DEFERRED` need modules not ported yet: they raise
-with the ROADMAP item that brings them.
+``GRUUnit``, ``NCE`` and ``TreeConv``. ``DataParallel``, in
+:data:`DEFERRED`, needs modules not ported yet: it raises with the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -23,9 +24,6 @@ from .tracer import no_grad, trace_op
 
 # name -> ROADMAP Queue 1 item that ports what it needs
 DEFERRED = {
-    "TracedLayer": "5b (jit.TracedLayer, jit/dy2static.py)",
-    "declarative": "5b (jit.to_static, jit/dy2static.py)",
-    "dygraph_to_static_func": "5b (jit.to_static, jit/dy2static.py)",
     "DataParallel": "8 (distributed/parallel.py)",
 }
 
@@ -191,6 +189,17 @@ class TranslatedLayer(Layer):
 
 
 # ------------------------------------------------------- dy2static API
+def declarative(fn=None, **kwargs):
+    """ref: dygraph/jit.py declarative → jit.to_static (kwargs such as
+    input_spec pass through)."""
+    from ..jit import to_static
+    if fn is not None:
+        return to_static(fn, **kwargs)
+    return lambda f: to_static(f, **kwargs)
+
+
+dygraph_to_static_func = declarative
+
 _DY2STATIC_VERBOSITY = {"code_level": 0, "verbosity": 0}
 
 

@@ -4,8 +4,10 @@ Port of the persistence half of ``paddle_tpu/io/__init__.py`` (ref:
 python/paddle/fluid/io.py save/load :1669,1730, save/load_persistables
 :598,966, save/load_inference_model :1164,1374), in the same layout, so
 the two packages read each other's files: state dicts as ``np.savez``
-archives, a program as JSON next to a ``params.npz`` archive. The
-DataLoader and datasets wait for ROADMAP Queue 1 item 6.
+archives, a program as JSON next to a ``params.npz`` archive;
+``load_inference_model`` also reads the reference's protobuf
+``__model__`` (``inference/proto_program.py``). The DataLoader and
+datasets wait for ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..core.enforce import NotFoundError, UnimplementedError
+from ..core.enforce import NotFoundError
 from ..core.program import Program
 from ..core.scope import Scope, global_scope
 from ..core.tensor import TpuTensor
@@ -181,26 +183,37 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
 def load_inference_model(dirname, executor, model_filename=None,
                          params_filename=None,
                          scope: Optional[Scope] = None):
-    """ref: fluid/io.py:1374 -> (program, feed_names, fetch_names), from
-    the JSON-IR layout. The reference's binary protobuf ``__model__``
-    (which the JAX package also reads) is not ported yet."""
+    """ref: fluid/io.py:1374 -> (program, feed_names, fetch_names).
+
+    Reads both artifact families, as the JAX package does: the JSON-IR
+    layout, and the reference's binary protobuf ``__model__`` with its
+    LoDTensor parameter streams (``inference/proto_program.py``), so a
+    real Paddle export, or one the JAX package wrote, loads unchanged. A
+    model file named for JSON that is not JSON is sniffed and read as
+    protobuf. The values go onto the executor's place (the default
+    device when it has none)."""
     json_path = os.path.join(dirname, model_filename or "__model__.json")
+    proto_path = os.path.join(dirname, model_filename or "__model__")
     if os.path.exists(json_path):
+        # sniff: a named artifact may itself be binary protobuf
         with open(json_path, "rb") as f:
             head = f.read(1)
         if head not in (b"{", b""):
-            raise UnimplementedError(
-                f"{json_path!r} is not JSON: the reference's protobuf "
-                f"program format is not ported")
+            json_path = None
     else:
-        if os.path.exists(os.path.join(dirname, model_filename or
-                                       "__model__")):
-            raise UnimplementedError(
-                f"{dirname!r} holds a reference-format __model__; the "
-                f"protobuf program format is not ported")
+        json_path = None
+    if json_path is None:
+        if os.path.exists(proto_path):
+            from ..inference.proto_program import (
+                load_reference_inference_model)
+            return load_reference_inference_model(
+                dirname, model_filename, params_filename, scope,
+                place=getattr(executor, "place", None))
         raise NotFoundError(
-            f"no inference model found under {dirname!r} "
-            f"({model_filename or '__model__.json'} does not exist)")
+            f"no inference model found under {dirname!r}: neither "
+            f"JSON ({model_filename or '__model__.json'}) nor "
+            f"reference-format ({model_filename or '__model__'}) "
+            f"artifact exists")
     with open(json_path) as f:
         payload = json.load(f)
     program = Program.from_json(json.dumps(payload["program"]))

@@ -1,7 +1,23 @@
-"""TrainStep: forward, backward and optimizer update in one call.
+"""TracedLayer, to_static and TrainStep.
 
-Port of the single-device ``TrainStep`` of ``paddle_tpu/jit/__init__.py``
-(``:134-262``, ``:350-396``). The reference traces the step into one XLA
+``TracedLayer`` and ``to_static`` are the port of
+``paddle_tpu/jit/__init__.py:38-131`` (ref: python/paddle/fluid/dygraph/
+jit.py TracedLayer / declarative, dygraph_to_static/
+program_translator.py:691). The reference traces the layer's forward
+under ``jax.jit``; the port runs it eagerly, as it runs ``TrainStep``
+(no ``torch.compile``, no CUDA graph): the forward runs under
+``no_grad``, in ``eval()`` unless ``train=True``, reading the layer's
+parameters and buffers at each call; numpy inputs move to
+``device.get_device()``; each sublayer's mode is restored afterwards.
+``to_static`` first rewrites the function's (or the layer's
+``forward``'s) data-dependent ``if``/``while``/``and``/``or``/``not``
+with ``dy2static.ast_transform``, whose runtime helpers follow the
+reference's traced semantics for tensor conditions (``dy2static.py``).
+``input_spec`` is accepted and ignored, as in the reference.
+
+``TrainStep`` is the port of the single-device ``TrainStep`` of
+``paddle_tpu/jit/__init__.py`` (``:134-262``, ``:350-396``). The
+reference traces the step into one XLA
 program; the port runs it eagerly (no ``torch.compile``): the forward
 under the step's AMP level and dtype, ``loss.backward()``, then the
 optimizer's ``functional_step`` under ``no_grad`` with the optimizer
@@ -20,7 +36,8 @@ state held by the step, written back into the parameters in place.
 - Buffers (BN running statistics) stay on the model, and the
   ``batch_norm`` op updates them in place during the forward.
 
-``ParallelTrainStep`` and ``DataParallelTrainStep`` are not ported yet.
+``ParallelTrainStep`` and ``DataParallelTrainStep`` are not ported yet
+(ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -35,6 +52,64 @@ from ..dygraph.varbase import to_variable
 from ..optimizer import Optimizer, install
 
 _LOW = (torch.bfloat16, torch.float16)
+
+
+def _input(a):
+    """A call argument: a tensor as it is, anything else (numpy, lists,
+    numbers) a tensor on the current device."""
+    return a if isinstance(a, torch.Tensor) else to_variable(a)
+
+
+class TracedLayer:
+    """Inference-mode call of a Layer (ref: dygraph/jit.py TracedLayer):
+    the forward under ``no_grad``, in ``eval()`` (``train()`` with
+    ``train=True``), each sublayer's mode restored afterwards. The
+    parameters and buffers are the layer's own, read at each call."""
+
+    def __init__(self, layer: Layer, train: bool = False):
+        self._layer = layer
+        self._train = train
+
+    def __call__(self, *args):
+        modes = [(m, m.training) for m in self._layer.modules()]
+        self._layer.train(self._train)
+        try:
+            with torch.no_grad():
+                return self._layer(*[_input(a) for a in args])
+        finally:
+            for m, mode in modes:
+                m.training = mode
+
+
+def to_static(layer_or_fn=None, input_spec=None):
+    """paddle.jit.to_static parity.
+
+    Functions (and Layer.forward) are first AST-rewritten (dy2static),
+    so a data-dependent Python ``if``/``while`` over tensors follows the
+    reference's traced semantics instead of Python's — the
+    ProgramTranslator contract (ref: dygraph_to_static/
+    program_translator.py:691). A Layer gets the converted forward bound
+    to the instance and comes back as a :class:`TracedLayer`; a function
+    comes back as one that runs the converted function under
+    ``no_grad``, numpy arguments as tensors on the current device."""
+    from .dy2static import ast_transform
+
+    if isinstance(layer_or_fn, Layer):
+        layer = layer_or_fn
+        fwd = ast_transform(type(layer).forward)
+        if fwd is not type(layer).forward:
+            layer.forward = fwd.__get__(layer)
+        return TracedLayer(layer)
+
+    def deco(fn):
+        converted = ast_transform(fn)
+
+        def wrapper(*args):
+            with torch.no_grad():
+                return converted(*[_input(a) for a in args])
+        return wrapper
+
+    return deco(layer_or_fn) if layer_or_fn is not None else deco
 
 
 def _copies(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -40,9 +40,12 @@ the tensor builders (``create_global_var``,
 ``autoincreased_step_counter``, ``fill_constant_batch_size_like``,
 ``range``, ``zeros``, ``ones``, ``eye``) and the losses of the
 module-parity builders, with ``nets``, ``CompiledProgram``
-(``compiler.py``) and static AMP (``amp/static_amp.py``). Not ported
-yet: ``rnn``, ``birnn`` and ``dynamic_decode`` (ROADMAP Queue 1 item
-5b) and the two selected-rows builders (item 8).
+(``compiler.py``) and static AMP (``amp/static_amp.py``). The cell
+drivers ``rnn``, ``birnn`` and ``dynamic_decode`` unroll over the static
+length (``dynamic_decode`` requires ``max_step_num``), beside the
+contrib decoder (``decoder.py``), ``contrib_layers.py``,
+``nest_utils.py`` and ``analysis.py``. Not ported yet: the two
+selected-rows builders (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -2524,6 +2527,113 @@ def _decode_builders():
 
 
 _decode_builders()
+
+
+def _rnn_driver_builders():
+    """``rnn``, ``birnn`` and ``dynamic_decode`` (ref: layers/rnn.py),
+    copied from the JAX package's ``_rnn_module_builders``: each unrolls
+    its loop over the static length and writes the same ops."""
+
+    def rnn(cell, inputs, initial_states=None, sequence_length=None,
+            time_major=False, is_reverse=False, **kwargs):
+        """ref: layers/rnn.py rnn — drive an RNNCell over the time
+        axis. Static-graph design: the loop is UNROLLED over the
+        (static) sequence length — each step appends its cell ops to
+        the program; use StaticRNN or while_loop for symbolic
+        lengths."""
+        t_axis = 0 if time_major else 1
+        steps = int(inputs.shape[t_axis])
+        states = initial_states
+        outs = [None] * steps
+        order = range(steps - 1, -1, -1) if is_reverse else range(steps)
+
+        def _mask_mix(new_v, old_v, mask):
+            """mask ? new : old (per batch row), broadcast on feats."""
+            mixed = _new_tmp(new_v.block, "rnn_mask")
+            _op(new_v.block, "where",
+                {"Condition": [mask.name], "X": [new_v.name],
+                 "Y": [old_v.name]}, {"Out": [mixed.name]}, {})
+            return mixed
+
+        for t in order:
+            x_t = nn.slice(inputs, axes=[t_axis], starts=[t],
+                           ends=[t + 1])
+            x_t = nn.squeeze(x_t, axes=[t_axis])
+            out, new_states = cell(x_t, states, **kwargs)
+            if sequence_length is not None:
+                # step valid while t < length: finished rows hold
+                # state and emit zeros (the reference's mask contract)
+                t_var = fill_constant(
+                    [int(sequence_length.shape[0])], "int64", t)
+                mask = _new_tmp(out.block, "rnn_valid")
+                _op(out.block, "less_than",
+                    {"X": [t_var.name], "Y": [sequence_length.name]},
+                    {"Out": [mask.name]}, {})
+                maskc = nn.unsqueeze(nn.cast(mask,
+                                             out_dtype="float32"),
+                                     axes=[1])
+                out = nn.elementwise_mul(out, maskc)
+                if states is not None:
+                    if isinstance(new_states, (list, tuple)):
+                        new_states = type(new_states)(
+                            _mask_mix(nv, ov,
+                                      nn.unsqueeze(mask, axes=[1]))
+                            for nv, ov in zip(new_states, states))
+                    else:
+                        new_states = _mask_mix(
+                            new_states, states,
+                            nn.unsqueeze(mask, axes=[1]))
+            states = new_states
+            outs[t] = out
+        seq = nn.stack(outs, axis=t_axis)
+        return seq, states
+
+    def birnn(cell_fw, cell_bw, inputs, initial_states=None,
+              sequence_length=None, time_major=False, **kwargs):
+        """ref: layers/rnn.py birnn."""
+        fw_states, bw_states = (initial_states
+                                if initial_states is not None
+                                else (None, None))
+        out_f, st_f = rnn(cell_fw, inputs, fw_states,
+                          time_major=time_major, **kwargs)
+        out_b, st_b = rnn(cell_bw, inputs, bw_states,
+                          time_major=time_major, is_reverse=True,
+                          **kwargs)
+        return nn.concat([out_f, out_b], axis=-1), (st_f, st_b)
+
+    def dynamic_decode(decoder, inits=None, max_step_num=None,
+                       output_time_major=False, **kwargs):
+        """ref: layers/rnn.py dynamic_decode — run a Decoder
+        (initialize/step/finalize contract) until finished or
+        max_step_num. Static design: the loop is unrolled to
+        max_step_num (required here — the While-based variant is
+        covered by static.control_flow.while_loop); finished beams keep
+        stepping and the finalize mask handles them, matching the
+        reference's padded semantics."""
+        enforce(max_step_num is not None and max_step_num > 0,
+                "dynamic_decode: max_step_num is required (the static "
+                "loop is unrolled)", InvalidArgumentError)
+        initial_inputs, initial_states, initial_finished = \
+            decoder.initialize(inits)
+        inputs, states = initial_inputs, initial_states
+        finished = initial_finished
+        step_outputs = []
+        for step in range(int(max_step_num)):
+            outputs, states, inputs, finished = decoder.step(
+                step, inputs, states, **kwargs)
+            step_outputs.append(outputs)
+        outs = nn.stack(step_outputs,
+                        axis=0 if output_time_major else 1)
+        if hasattr(decoder, "finalize"):
+            return decoder.finalize(outs, states, None)
+        return outs, states
+
+    for fn in (rnn, birnn, dynamic_decode):
+        if not hasattr(nn, fn.__name__):
+            setattr(nn, fn.__name__, staticmethod(fn))
+
+
+_rnn_driver_builders()
 
 
 # The RoI pooling builders of the JAX package's simple tables

@@ -69,9 +69,12 @@ class TensorArray:
         out.max_size = self.max_size
         slot = idx + self.max_size if idx < 0 else idx
         value = _raw(value).to(self._buf.device, self._buf.dtype)
-        out._buf = self._buf if slot < 0 else self._buf.index_copy(
-            0, torch.tensor([slot], device=self._buf.device),
-            value.reshape((1,) + tuple(self._buf.shape[1:])))
+        out._buf = self._buf
+        if slot >= 0:
+            # a copy written by a Python index: no index tensor made from
+            # host data (a copy that would wait for the card's stream)
+            out._buf = self._buf.clone()
+            out._buf[slot] = value.reshape(tuple(self._buf.shape[1:]))
         out._size = min(max(self._size, idx + 1), self.max_size)
         return out
 

@@ -12,12 +12,15 @@ one O1 step under the profiler: launches, host syncs, device busy),
 ``cyclegan``, ``cf_api``, ``control_flow``, ``ptb_lm``, ``seq_ops``,
 ``rnnlm_eager``, ``sentiment_lstm``, ``decode_ops``, ``crnn``,
 ``rcnn_ops``, ``faster_rcnn``, ``static_builders``, ``static_ernie``
-(then K1-K3 at its shape, ``phase_ernie_kernels``) and ``fp16`` (phase
-timing at fp16). To
+(then K1-K3 at its shape, ``phase_ernie_kernels``), ``dy2static_nmt``
+(then K1-K3 at its shape, ``phase_nmt_kernels``), ``static_decoders``,
+``proto_model`` (after ``phase_predictor``, which saves the artifacts it
+reads, under ``build/serving``) and ``fp16`` (phase timing at fp16). To
 compare two commits on one card, run them in turns in one call, one
 process each, e.g. parent, change, change, parent.
 """
 import os
+import shutil
 import sys
 import time
 
@@ -105,6 +108,16 @@ def main():
         elif ph == "static_ernie":
             _, dtype = cs.phase_static_ernie(tpt, fa, dev)
             cs.phase_ernie_kernels(fa, dev, getattr(torch, dtype))
+        elif ph == "dy2static_nmt":
+            cs.phase_dy2static_nmt(tpt, fa, dev)
+            cs.phase_nmt_kernels(fa, dev)
+        elif ph == "static_decoders":
+            cs.phase_static_decoders(tpt, dev)
+        elif ph == "proto_model":
+            workdir = "build/serving"
+            shutil.rmtree(workdir, ignore_errors=True)
+            paths = cs.phase_predictor(tpt, fa, dev, workdir)
+            cs.phase_proto_model(tpt, fa, dev, paths, workdir)
         elif ph == "fp16":
             cs.phase_timing(fa, dev, torch.float16)
         else:

@@ -233,9 +233,9 @@ def test_tensor_array_as_a_loop_carry():
 
 
 def test_tensor_array_decode_loop_matches_to_static():
-    """tests/test_tensor_array.py's dy2static decode loop: the port runs
-    the python loop eagerly (jit.to_static waits for item 5b); the JAX
-    package's to_static result is the reference."""
+    """tests/test_tensor_array.py's dy2static decode loop: the port's
+    python loop run eagerly against the JAX package's to_static result
+    (test_torch_dy2static.py holds the port's own to_static of it)."""
     from paddle_tpu.jit import to_static
 
     def jax_decode(x):

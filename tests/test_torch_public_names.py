@@ -1,9 +1,11 @@
 """Every public name of the reference's ``dygraph``, ``nn``, ``static``,
-``static.nn``, ``static.detection`` and ``tensor_api`` exists in the
-port's module of the same
-name (F5: ``dygraph.VarBase`` was missing), less the names a named
-ROADMAP Queue 1 item still defers, which raise naming it or are absent
-until it lands, and less the JAX tape's internals, which have no twin.
+``static.nn``, ``static.detection``, ``tensor_api``, ``static.decoder``,
+``static.contrib_layers``, ``static.nest_utils``, ``static.analysis``,
+``inference.proto_program`` and ``jit.dy2static`` exists in the port's
+module of the same name (F5: ``dygraph.VarBase`` was missing), less the
+names a named ROADMAP Queue 1 item still defers, which raise naming it
+or are absent until it lands, and less the JAX tape's internals, which
+have no twin.
 
 A module's public names are its ``__all__`` where it has one, else the
 names of ``dir()`` that are not private and not modules. The deferred
@@ -23,21 +25,22 @@ from paddle_tpu_torch.core.enforce import UnimplementedError
 # function have no twin
 NO_TWIN = {"dygraph": {"TapeNode", "trace_with_fn"}}
 
-# ROADMAP Queue 1 item 5b (dy2static and the decoder-driven builders)
-# and item 8 (the selected-rows ops the two selected-rows builders
-# append)
+# ROADMAP Queue 1 item 8 (the selected-rows ops the two selected-rows
+# builders append)
 DEFERRED = {
-    "dygraph": {"declarative": "item 5b", "dygraph_to_static_func": "item 5b"},
-    "static.nn": {"rnn": "item 5b", "birnn": "item 5b",
-                  "dynamic_decode": "item 5b",
-                  "get_tensor_from_selected_rows": "item 8",
+    "static.nn": {"get_tensor_from_selected_rows": "item 8",
                   "merge_selected_rows": "item 8"},
 }
 
 # (reference module, port module): static.nn is a namespace class
 MODULES = {"dygraph": "dygraph", "nn": "nn", "static": "static",
            "static.nn": "static.nn", "static.detection": "static.detection",
-           "tensor_api": "tensor_api"}
+           "tensor_api": "tensor_api", "static.decoder": "static.decoder",
+           "static.contrib_layers": "static.contrib_layers",
+           "static.nest_utils": "static.nest_utils",
+           "static.analysis": "static.analysis",
+           "inference.proto_program": "inference.proto_program",
+           "jit.dy2static": "jit.dy2static"}
 
 
 def _module(package, name):

@@ -253,24 +253,24 @@ def test_equal_all_falls_back_to_allclose():
 
 
 def test_deferred_and_refused_names_raise():
-    """Complex data (item 12), the 1.x layers and aliases still deferred
-    (items 5, 8) raise and name their ROADMAP item (the four of item 4b
-    are held against the reference in test_torch_nn_layers.py, TreeConv
-    of item 4d in test_torch_parity_ops.py, GRUUnit of item 4e-i in
-    test_torch_rnn.py);
+    """Complex data (item 12) and the 1.x alias still deferred
+    (``DataParallel``, item 8) raise and name their ROADMAP item (the four
+    of item 4b are held against the reference in test_torch_nn_layers.py,
+    TreeConv of item 4d in test_torch_parity_ops.py, GRUUnit of item 4e-i
+    in test_torch_rnn.py); the names item 5b brought (``TracedLayer``,
+    ``declarative``, ``dygraph_to_static_func``) resolve to ``jit``'s
+    (held against the reference in test_torch_dy2static.py);
     ``nonzero(as_tuple=True)`` and ``unique(axis=...)`` raise as in the
     reference."""
-    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch import dygraph, jit
     with pytest.raises(UnimplementedError, match="item 12"):
         tpt.to_tensor(np.array([1 + 2j]))
     with pytest.raises(UnimplementedError, match="item 12"):
         tpt.to_tensor([1.0, 2.0], dtype="complex64")
-    for name, item in (("TracedLayer", "item 5b"),
-                       ("declarative", "item 5b"),
-                       ("dygraph_to_static_func", "item 5b"),
-                       ("DataParallel", "item 8")):
-        with pytest.raises(UnimplementedError, match=item):
-            getattr(dygraph, name)
+    with pytest.raises(UnimplementedError, match="item 8"):
+        dygraph.DataParallel
+    assert dygraph.TracedLayer is jit.TracedLayer
+    assert dygraph.dygraph_to_static_func is dygraph.declarative
     with pytest.raises(InvalidArgumentError):
         pta.nonzero(COND, as_tuple=True)
     with pytest.raises(InvalidArgumentError):

@@ -277,6 +277,31 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      dynamic_decode, and one case of each contrib_layers builder with a
      registered type (paddle_tpu_torch/testing/decoder_cases.py), card
      against CPU. Phases 42-44 print their command time together.
+  45. resnet_loader, the first main path of the data slice: ResNet-50
+     (O1, NHWC, batch 256, 224 px) fed by io.DataLoader workers running
+     vision.transforms' PaddleClas ImageNet recipe on 1,280 seeded uint8
+     images memory-mapped from build/, a pass drawing LOADER_ROUNDS
+     batches a worker with replacement: the loader alone at 0, 4 and
+     all cores' workers (steady-state images/s after each worker's
+     first batch, the first wait apart, the workers that delivered) and
+     each transform's ms an image; loader-fed steps (steady state, first
+     round apart) beside as many device-fed ones, the pageable
+     host-to-device copy of a batch, the steady batches' wait p50 / p99,
+     a profiled steady-state stretch (busy, idle, launches, host syncs);
+     batches in sampler order with the sampled labels, the first loss
+     near ln(1000), no shared-memory segment or worker left after each
+     pass and after a break;
+  46. ctr_dataset, the second: Paddle's fluid CTR-DNN (ctr_dnn_program,
+     10,431,212 parameters, batch 1000, Adam 1e-4) trained by
+     Executor.train_from_dataset over 8 MultiSlot files a
+     MultiSlotDataGenerator wrote (128 batches), QueueDataset with 8
+     threads through the native feeder (g++-built into build/): rows/s
+     and ms a batch, the feeder alone, peak memory, every batch counted
+     as native, finite losses, the first 4 losses card against CPU
+     within 1e-4, a profiled pass over one file (busy, idle, launches
+     and host syncs a batch), and infer_from_dataset leaving the
+     parameters bit-equal. Phases 45-46 print their command time
+     together.
 Phase 3 also times K1-K3 in fp16 at BERT-base.
 The last two lines are the kernels' JSON record (each kernel at fp32,
 its launches from phase 7 and, as launches_eager_bert, from phase 27;
@@ -1375,17 +1400,24 @@ def calibrated_state(model, x):
             for k, v in model.state_dict().items()}
 
 
-def _resnet_run(tpt, dev, layout, batches, warmup, steps):
+def resnet_train_step(tpt, dev, layout):
+    """ResNet-50 of RESNET's classes from seed 0 and its O1 TrainStep with
+    Momentum(0.1, 0.9), as bench.py builds them: (model, step)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import Momentum
     from paddle_tpu_torch.vision.models import resnet50
     tpt.set_device(dev)
     tpt.seed(0)
-    t0 = time.perf_counter()
     model = resnet50(num_classes=RESNET["classes"], data_format=layout)
     train = TrainStep(model, resnet_step_fn, Momentum(
         learning_rate=0.1, momentum=0.9, parameters=model.parameters()),
         amp_level="O1").ensure_state()
+    return model, train
+
+
+def _resnet_run(tpt, dev, layout, batches, warmup, steps):
+    t0 = time.perf_counter()
+    model, train = resnet_train_step(tpt, dev, layout)
     torch.cuda.synchronize()
     print(f"[resnet] {layout} ResNet-50 "
           f"{sum(p.numel() for p in model.parameters())} params built in "
@@ -7440,6 +7472,546 @@ def phase_proto_model(tpt, fa, dev, paths, workdir):
               f"{name}: K1 launched {launches} times in one run")
 
 
+# ---------------------------------------------------------------- data and IO
+# Drive A: ResNet-50 fed by DataLoader workers. Seeded uint8 HWC images
+# at one size stand in for decoded ImageNet JPEGs (the card machine may
+# lack PIL, and there is no dataset); the transforms are the PaddleClas
+# ImageNet training recipe's (RandCropImage 224, RandFlipImage,
+# NormalizeImage with ImageNet's mean and std on HWC). A measured pass
+# draws LOADER_ROUNDS batches a worker from the images with replacement
+# (the loader keeps two a worker in flight), so its steady state, after
+# each worker's first batch, is read apart from the fork and that first
+# round.
+LOADER = dict(images=1280, px=256, crop=224, batch=256)
+LOADER_ROUNDS = 4
+IMAGENET_MEAN = [0.485 * 255, 0.456 * 255, 0.406 * 255]
+IMAGENET_STD = [0.229 * 255, 0.224 * 255, 0.225 * 255]
+
+
+def imagenet_transform(transforms, crop):
+    """The PaddleClas ImageNet training transforms over the package's
+    ``vision.transforms``: uint8 HWC in, float32 HWC out."""
+    return transforms.Compose([
+        transforms.RandomResizedCrop(crop),
+        transforms.RandomHorizontalFlip(),
+        transforms.Normalize(IMAGENET_MEAN, IMAGENET_STD,
+                             data_format="HWC")])
+
+
+def loader_images(path, n, px, classes, seed=0):
+    """n seeded uint8 images of px x px x 3 and int64 labels below
+    ``classes``: written once to ``path`` (.npy), then memory-mapped."""
+    import os
+    rs = np.random.RandomState(seed)
+    labels = rs.randint(0, classes, (n,)).astype(np.int64)
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp.npy"
+        out = np.lib.format.open_memmap(tmp, mode="w+", dtype=np.uint8,
+                                        shape=(n, px, px, 3))
+        for lo in range(0, n, 128):
+            out[lo:lo + 128] = rs.randint(0, 256, out[lo:lo + 128].shape,
+                                          dtype=np.uint8)
+        out.flush()
+        del out
+        os.replace(tmp, path)
+    return np.load(path, mmap_mode="r"), labels
+
+
+def image_dataset(io, images, labels, transform):
+    """A map-style ``io.Dataset`` of (transform(image), [label], [pid]):
+    the pid of the process that made the sample, so a pass can count the
+    workers that delivered batches."""
+    import os
+
+    class Images(io.Dataset):
+        def __init__(self):
+            self.transform = transform
+
+        def __len__(self):
+            return len(images)
+
+        def __getitem__(self, i):
+            return (self.transform(np.asarray(images[i])),
+                    np.asarray([labels[i]], np.int64),
+                    np.asarray([os.getpid()], np.int64))
+    return Images()
+
+
+class RecordedBatches:
+    """A batch sampler that keeps the index lists it hands out, so the
+    batches that arrive can be held against the indices sampled."""
+
+    def __init__(self, inner):
+        self.inner, self.batches = inner, []
+
+    def __iter__(self):
+        for idx in self.inner:
+            self.batches.append(list(idx))
+            yield idx
+
+    def __len__(self):
+        return len(self.inner)
+
+
+def shm_left(prefix):
+    """Names of the shared-memory segments that start with prefix."""
+    import os
+    return sorted(n for n in os.listdir("/dev/shm") if n.startswith(prefix))
+
+
+class LoaderPass:
+    """One pass of a DataLoader over ``image_dataset`` whose batch
+    sampler is a RecordedBatches. ``take(count)`` checks that each batch
+    holds the labels of the indices sampled for it, in sampler order,
+    runs ``each(x, y)`` on it, and records its wait for the loader and
+    its end (after ``each``) in s from the pass's start, and the pids
+    that made it."""
+
+    def __init__(self, loader, labels, what, each=None):
+        loader.batch_sampler.batches.clear()
+        self.sampled, self.labels = loader.batch_sampler.batches, labels
+        self.what, self.each = what, each
+        self.it = iter(loader)
+        self.t0 = self.last = time.perf_counter()
+        self.waits, self.ends, self.pids = [], [], set()
+
+    def take(self, count=None):
+        import itertools
+        for x, y, pid in itertools.islice(self.it, count):
+            k = len(self.ends)
+            self.waits.append(time.perf_counter() - self.last)
+            check(np.array_equal(y[:, 0], self.labels[self.sampled[k]]),
+                  f"{self.what}: batch {k} is not the sampler's batch {k}")
+            self.pids.update(pid[:, 0].tolist())
+            if self.each is not None:
+                self.each(x, y)
+            self.last = time.perf_counter()
+            self.ends.append(self.last - self.t0)
+        return self
+
+    def stats(self, first):
+        """The batches taken so far, read apart at the first ``first``
+        (the first round: one a worker): the first batch's wait and the
+        first round's end (s), then the steady state after it, in ms a
+        batch, with the wait p50 / p99 of its batches (ms, numpy's
+        linear percentiles) and their count."""
+        n = len(self.ends)
+        steady = self.waits[first:]
+        return dict(first_wait=self.waits[0], first_round=self.ends[first - 1],
+                    batch_ms=(self.ends[-1] - self.ends[first - 1]) * 1e3
+                    / (n - first), p50=np.percentile(steady, 50) * 1e3,
+                    p99=np.percentile(steady, 99) * 1e3, steady=n - first,
+                    workers=len(self.pids))
+
+
+def phase_resnet_loader(tpt, dev):
+    """Drive A: ResNet-50 (O1, NHWC, batch 256, 224 px, 1000 classes)
+    fed by io.DataLoader workers that run vision.transforms on seeded
+    uint8 images; the loader alone at 0, 4 and all cores' workers, then
+    loader-fed steps beside device-fed ones in this process."""
+    import multiprocessing as mp
+    import os
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.io import dataloader as dl
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.vision import transforms
+    cfg = LOADER
+    b, classes = cfg["batch"], RESNET["classes"]
+    t0 = time.perf_counter()
+    images, labels = loader_images(
+        f"build/loader/images_{cfg['images']}_{cfg['px']}.npy",
+        cfg["images"], cfg["px"], classes)
+    ds = image_dataset(io, images, labels,
+                       imagenet_transform(transforms, cfg["crop"]))
+    # the cores this process may run on (os.cpu_count() counts the
+    # host's, which a container may not have)
+    cores = len(os.sched_getaffinity(0))
+    shm = os.statvfs("/dev/shm")
+    print(f"[resnet_loader] {cfg['images']} uint8 images {cfg['px']} x "
+          f"{cfg['px']} x 3 ({images.nbytes / 2 ** 20:.1f} MiB, memory-"
+          f"mapped) ready in {time.perf_counter() - t0:.1f} s; host cores "
+          f"{cores} (os.cpu_count() {os.cpu_count()}); /dev/shm free "
+          f"{shm.f_bavail * shm.f_frsize / 2 ** 30:.1f} GiB; batch {b} of "
+          f"{cfg['crop']} px float32 HWC = "
+          f"{b * cfg['crop'] ** 2 * 3 * 4 / 1e6:.1f} MB")
+    prefix = dl.shm_prefix_of()
+
+    def loader(workers, batches):
+        """``batches`` batches drawn with replacement, or the index lists
+        given."""
+        if isinstance(batches, int):
+            batches = io.BatchSampler(sampler=io.RandomSampler(
+                ds, replacement=True, num_samples=batches * b),
+                batch_size=b, drop_last=True)
+        return io.DataLoader(ds, num_workers=workers, use_shared_memory=True,
+                             batch_sampler=RecordedBatches(batches))
+
+    def no_leftovers(what):
+        check(not shm_left(prefix), f"{what}: shared-memory segments left "
+              f"{shm_left(prefix)[:4]}")
+        check(not mp.active_children(),
+              f"{what}: worker processes alive {mp.active_children()}")
+
+    def rate(st):
+        return b / st["batch_ms"] * 1e3
+
+    # the loader alone: in this process over three batches, the first
+    # apart, then forked workers over LOADER_ROUNDS batches each
+    order = np.random.RandomState(1).permutation(len(ds))
+    alone = {0: LoaderPass(loader(0, [order[k * b:(k + 1) * b]
+                                      for k in range(3)]),
+                           labels, "0 workers").take().stats(1)}
+    for w in sorted({4, cores}):
+        alone[w] = LoaderPass(loader(w, LOADER_ROUNDS * w), labels,
+                              f"{w} workers").take().stats(w)
+        no_leftovers(f"{w} workers")
+        check(alone[w]["workers"] == w, f"{w} workers: "
+              f"{alone[w]['workers']} delivered batches")
+    parts = transform_ms(ds.transform, images)
+    t = time.perf_counter()
+    batch = dl.default_collate_fn([ds[i] for i in order[:b]])
+    made = time.perf_counter() - t
+    t = time.perf_counter()
+    dl._release_shm(dl._batch_to_shm(batch, f"{prefix}probe_"))
+    shm_s = time.perf_counter() - t
+    print("[resnet_loader] the loader alone, steady state after each "
+          "worker's first batch: " + "; ".join(
+              (f"{w} workers ({st['workers']} delivered) " if w else
+               "0 workers (this process) ") + f"{rate(st):.1f} "
+              f"images/s, {st['batch_ms']:.1f} ms a batch over "
+              f"{st['steady']} batches, wait p50 {st['p50']:.1f} p99 "
+              f"{st['p99']:.1f} ms; first batch after "
+              f"{st['first_wait']:.3f} s, first round done at "
+              f"{st['first_round']:.3f} s" for w, st in alone.items()))
+    print("[resnet_loader] in one process, ms an image: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; a batch made and collated in {made:.3f} s, written to "
+        f"shared memory and unlinked in {shm_s:.3f} s")
+
+    # ResNet-50 fed by device-resident batches, then by the loader
+    torch.backends.cudnn.benchmark = True      # as training scripts run
+    steps = LOADER_ROUNDS * cores
+    try:
+        model, train = resnet_train_step(tpt, dev, "NHWC")
+        first = next(iter(loader(0, [order[:b]])))
+        resident = [torch.from_numpy(a).to(dev) for a in first[:2]]
+        losses = [float(train(*resident)) for _ in range(2)]
+        resident_ms = _timed_steps(lambda: train(*resident), 0, steps)
+        copies = []
+
+        def fed_step(x, y):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            xd = torch.from_numpy(x).to(dev)
+            yd = torch.from_numpy(y).to(dev)
+            torch.cuda.synchronize()
+            copies.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(train(xd, yd)))
+
+        # one pass: `steps` timed, one more round profiled, then a break
+        # with the last round in flight, its iterator still referenced
+        # (as a profiler or a traceback may hold it)
+        metrics.reset()
+        p = LoaderPass(loader(cores, steps + 2 * cores), labels,
+                       "loader-fed steps", each=fed_step)
+        fed = p.take(steps).stats(cores)
+        hist = metrics.snapshot()["dataloader/wait_ms"]
+        prof = profile_call(lambda: p.take(cores))
+        p.it.close()
+        no_leftovers("a break with a round in flight")
+        check(fed["workers"] == cores,
+              f"loader-fed steps: {fed['workers']} workers delivered")
+    finally:
+        torch.backends.cudnn.benchmark = False
+    med = lambda v: sorted(v)[len(v) // 2]          # noqa: E731
+    print(f"[resnet_loader] NHWC O1, {steps} steps fed by {cores} loader "
+          f"workers ({fed['workers']} delivered): steady state "
+          f"{fed['batch_ms']:.3f} ms a step ({rate(fed):.2f} img/s) over "
+          f"the {fed['steady']} steps after the first round, which ended "
+          f"at {fed['first_round']:.3f} s (first wait "
+          f"{fed['first_wait']:.3f} s); {steps} steps fed by a "
+          f"device-resident batch: step_ms median {med(resident_ms):.3f} "
+          f"range {min(resident_ms):.3f}-{max(resident_ms):.3f} (img/s "
+          f"{b / med(resident_ms) * 1e3:.2f}); loader-fed over device-fed "
+          f"{fed['batch_ms'] / med(resident_ms):.2f}x")
+    copies = copies[:steps]         # the timed steps'
+    print(f"[resnet_loader] host-to-device copy of a batch (pageable): "
+          f"median {med(copies):.3f} ms range {min(copies):.3f}-"
+          f"{max(copies):.3f} ({b * cfg['crop'] ** 2 * 3 * 4 / med(copies) / 1e6:.2f}"
+          f" GB/s); wait of the {fed['steady']} steady steps p50 "
+          f"{fed['p50']:.3f} p99 {fed['p99']:.3f} ms; dataloader/wait_ms "
+          f"over all {hist['count']} batches p50 {hist['p50']:.3f} p99 "
+          f"{hist['p99']:.3f} max {hist['max']:.3f}")
+    print(f"[resnet_loader] a profiled steady-state stretch (the {cores} "
+          f"loader-fed steps after the timed ones) "
+          f"{prof['wall_ms']:.3f} ms: device busy {prof['busy_ms']:.3f} ms "
+          f"(idle {1 - prof['busy_ms'] / prof['wall_ms']:.3f}), launches "
+          f"{prof['launches'] / cores:.1f} and host syncs "
+          f"{prof['syncs'] / cores:.1f} a step")
+    print(f"[resnet_loader] losses {[round(x, 4) for x in losses]}; "
+          f"ln(1000) = {math.log(classes):.4f}; no shared-memory segment of "
+          f"{prefix}* and no worker process left after each pass and "
+          f"after a break with a round in flight")
+    check(hist["count"] == steps, f"dataloader/wait_ms counted "
+          f"{hist['count']} of {steps} batches")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    check(abs(losses[0] - math.log(classes)) < RESNET_LOSS0_TOL,
+          f"first loss {losses[0]} far from ln({classes})")
+    return {w: rate(st) for w, st in alone.items()}
+
+
+def transform_ms(transform, images, n=16):
+    """ms an image of each step of a Compose, and of the whole, over the
+    first n images, in this process."""
+    out = collections.Counter()
+    for i in range(n):
+        img = np.asarray(images[i])
+        for t in transform.transforms:
+            t0 = time.perf_counter()
+            img = t(img)
+            out[type(t).__name__] += (time.perf_counter() - t0) * 1e3 / n
+    return out
+
+
+# Drive B: the fluid CTR-DNN of PaddlePaddle/models
+# PaddleRec/ctr/dnn/network_conf.py ctr_dnn_model with its train.py
+# defaults, trained by Executor.train_from_dataset. Synthetic
+# Criteo-like rows stand in for the Criteo corpus; the sparse slots are
+# declared shape [-1, 1] with their "@LEN" lengths beside them instead
+# of lod_level=1 (neither package feeds a lod_level=1 var from a
+# dataset: its "@seq_len" stays unfed), so sequence_pool averages each
+# slot over the lengths the dataset gives; the auc layer, which neither
+# package registers, is left out.
+CTR = dict(vocab=1_000_001, emb=10, hidden=(400, 400, 400), dense=13,
+           sparse=26, batch=1000, lr=1e-4, files=8, rows=16_000, threads=8)
+CTR_PARAMS = 10_431_212
+CTR_CPU_RTOL = 1e-4         # card against CPU, the first batches' losses
+CTR_CPU_BATCHES = 4
+# criteo_reader.py's continuous-feature offsets and ranges
+CTR_CONT_MIN = [0, -3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+CTR_CONT_DIFF = [20, 603, 100, 50, 64000, 500, 100, 50, 500, 10, 10, 10, 50]
+
+
+def ctr_dnn_program(api, vocab, emb, hidden, dense=13, sparse=26, lr=1e-4):
+    """ctr_dnn_model built with ``api`` (either package): (main, startup,
+    test program cloned before the optimizer, feed vars in file order,
+    loss var)."""
+    pt, static = api.pt, api.static
+    nn = static.nn
+    main, startup = pt.Program(), pt.Program()
+    with static.program_guard(main, startup):
+        dense_in = static.data("dense_input", [-1, dense], "float32")
+        ids = [static.data(f"C{i}", [-1, 1], "int64")
+               for i in range(1, sparse + 1)]
+        lens = [static.data(f"C{i}@LEN", [-1], "int64")
+                for i in range(1, sparse + 1)]
+        label = static.data("label", [-1, 1], "int64")
+        pooled = []
+        for c, n in zip(ids, lens):
+            e = nn.embedding(c, size=[vocab, emb], is_sparse=True,
+                             param_attr=api.ParamAttr(
+                                 name="SparseFeatFactors",
+                                 initializer=api.I.Uniform()))
+            pooled.append(nn.sequence_pool(nn.reshape(e, [-1, 1, emb]), n,
+                                           pooltype="AVERAGE"))
+        x = nn.concat(pooled + [dense_in], axis=1)
+        for width in (*hidden, 2):
+            x = nn.fc(x, size=width,
+                      act="relu" if width != 2 else "softmax",
+                      param_attr=api.ParamAttr(initializer=api.I.Normal(
+                          0.0, 1 / math.sqrt(x.shape[1]))))
+        loss = nn.mean(nn.cross_entropy(x, label))
+        test = main.clone(for_test=True)
+        api.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, test, [dense_in, *ids, label], loss
+
+
+def ctr_params(test):
+    """The model's parameters: the persistable vars of its test program
+    (cloned before the optimizer added its state)."""
+    return sorted(v.name for v in test.list_vars() if v.persistable)
+
+
+def criteo_raw_lines(seed, n):
+    """n seeded Criteo-like raw lines: label, 13 integer features and 26
+    hashed categorical ones, tab-separated, about 1 in 8 missing."""
+    rs = np.random.RandomState(seed)
+    label = (rs.rand(n) < 0.25).astype(int)
+    ints = np.minimum(rs.geometric(0.05, (n, 13)) - 1, 60000)
+    cats = (rs.zipf(1.3, (n, 26)) * 2654435761 + np.arange(26)) % (1 << 32)
+    miss_i, miss_c = rs.rand(n, 13) < 0.125, rs.rand(n, 26) < 0.125
+    return ["\t".join([str(label[r])]
+                      + ["" if miss_i[r, j] else str(ints[r, j])
+                         for j in range(13)]
+                      + ["" if miss_c[r, j] else format(cats[r, j], "08x")
+                         for j in range(26)]) + "\n" for r in range(n)]
+
+
+def criteo_generator(data_generator, vocab):
+    """The source's criteo_reader as a MultiSlotDataGenerator of the
+    given package: dense features scaled to [0, 1] by its ranges, each
+    categorical feature hashed with zlib.crc32 (Python's str hash
+    differs between processes) modulo ``vocab``."""
+    import zlib
+
+    class CriteoGenerator(data_generator.MultiSlotDataGenerator):
+        def generate_sample(self, line):
+            def reader():
+                f = line.rstrip("\n").split("\t")
+                dense = [0.0 if f[i] == "" else
+                         (float(f[i]) - CTR_CONT_MIN[i - 1])
+                         / CTR_CONT_DIFF[i - 1] for i in range(1, 14)]
+                sparse = [[zlib.crc32((str(i) + f[i]).encode()) % vocab]
+                          for i in range(14, 40)]
+                names = ["dense_input"] + [f"C{i - 13}" for i in
+                                           range(14, 40)] + ["label"]
+                yield list(zip(names, [dense] + sparse + [[int(f[0])]]))
+            return reader
+    return CriteoGenerator()
+
+
+def write_multislot(data_generator, vocab, path, seed, rows):
+    """criteo_raw_lines(seed, rows) through criteo_generator into the
+    MultiSlot file ``path``."""
+    with open(path, "w") as out:
+        criteo_generator(data_generator, vocab).run_from_stdin(
+            out=out, lines=criteo_raw_lines(seed, rows))
+
+
+def _write_ctr_file(args):
+    from paddle_tpu_torch.incubate import data_generator
+    write_multislot(data_generator, *args)
+
+
+def phase_ctr_dataset(tpt, dev):
+    """Drive B: the fluid CTR-DNN (CTR) trained by train_from_dataset on
+    MultiSlot files a MultiSlotDataGenerator wrote, read by QueueDataset
+    through the native feeder; the first batches card against CPU, a
+    profiled stretch, then infer_from_dataset."""
+    import multiprocessing as mp
+    import os
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.testing import static_cases
+    cfg, workdir = CTR, "build/ctr"
+    api = static_cases.port_api()
+    tpt.set_device(dev)
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.perf_counter()
+    files = [f"{workdir}/part-{i}.txt" for i in range(cfg["files"])]
+    with mp.get_context("fork").Pool(min(cfg["files"], os.cpu_count())) as p:
+        p.map(_write_ctr_file, [(cfg["vocab"], f, i, cfg["rows"])
+                                for i, f in enumerate(files)])
+    gen_s = time.perf_counter() - t0
+    main, startup, test, feeds, loss = ctr_dnn_program(
+        api, cfg["vocab"], cfg["emb"], cfg["hidden"], cfg["dense"],
+        cfg["sparse"], cfg["lr"])
+    params = ctr_params(test)
+    exe, scope = tpt.Executor(), tpt.Scope()
+    exe.run(startup, scope=scope)
+    n_params = sum(scope.find_var(n).get().value.numel() for n in params)
+    # the whole persistable state at the start, for the CPU run
+    cpu_scope = scope_copy(tpt, [n for n, v in main.global_block().vars.items()
+                                 if v.persistable], scope, "cpu")
+
+    def dataset(files_):
+        ds = api.pt.DatasetFactory().create_dataset("QueueDataset")
+        ds.set_batch_size(cfg["batch"])
+        ds.set_thread(cfg["threads"])
+        ds.set_filelist(files_)
+        ds.set_use_var(feeds)
+        return ds
+
+    rows = cfg["files"] * cfg["rows"]
+    n_batches = cfg["files"] * -(-cfg["rows"] // cfg["batch"])
+    print(f"[ctr_dataset] CTR-DNN {n_params} parameters; {cfg['files']} "
+          f"MultiSlot files of {cfg['rows']} rows ({sum(os.path.getsize(f) for f in files) / 2 ** 20:.1f} MiB)"
+          f" written by a MultiSlotDataGenerator in {gen_s:.1f} s")
+    # the native feeder alone, built first
+    t0 = time.perf_counter()
+    native.ensure_built()
+    print(f"[ctr_dataset] native feeder library {native.library_path()}, "
+          f"ready in {time.perf_counter() - t0:.2f} s (g++ unless built "
+          f"already)")
+    ds = dataset(files)
+    t0 = time.perf_counter()
+    alone = sum(1 for _ in native.MultiSlotFeeder(
+        ds.filelist, ds.batch_size, [(s.name, s.dtype, s.dim)
+                                     for s in ds.slots],
+        num_threads=ds.thread_num))
+    feed_s = time.perf_counter() - t0
+    # the training pass; the first batches are kept for the CPU run
+    kept, inner = [], ds._batch_iter
+
+    def keep():
+        for batch in inner():
+            if len(kept) < CTR_CPU_BATCHES:
+                kept.append(batch)
+            yield batch
+
+    ds._batch_iter = keep
+    native0 = metrics.metric_get("dataset/native_batches") or 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = exe.train_from_dataset(main, ds, scope=scope, fetch_list=[loss],
+                                  print_period=1)
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    native = (metrics.metric_get("dataset/native_batches") or 0) - native0
+    losses = hist[loss.name]
+    print(f"[ctr_dataset] the native feeder alone: {alone} batches, "
+          f"{rows / feed_s:.0f} rows/s; train_from_dataset: {len(losses)} "
+          f"batches in {pass_s:.3f} s, {rows / pass_s:.0f} rows/s, "
+          f"{pass_s / len(losses) * 1e3:.3f} ms a batch, peak memory "
+          f"{peak:.3f} GiB; native batches {native}; losses first "
+          f"{losses[:4]} last {losses[-4:]}")
+    check(n_params == CTR_PARAMS, f"{n_params} parameters, not {CTR_PARAMS}")
+    check(alone == n_batches and len(losses) == n_batches,
+          f"{alone} / {len(losses)} batches, not {n_batches}")
+    check(native == n_batches, f"the native feeder served {native} of "
+          f"{n_batches} batches")
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    # card against CPU on the first batches, from the same start
+    cpu_exe = tpt.Executor("cpu")
+    block = main.global_block()
+    cpu = []
+    for batch in kept:
+        feed = {k: v for k, v in batch.items()
+                if not k.endswith("@LEN") or block.has_var(k)}
+        cpu.append(float(cpu_exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=cpu_scope)[0]))
+    errs = [abs(g - c) / abs(c) for g, c in zip(losses, cpu)]
+    print(f"[ctr_dataset] the first {len(cpu)} losses on the CPU {cpu}: "
+          f"relative error {max(errs):.3e} (bound {CTR_CPU_RTOL:g})")
+    check(max(errs) <= CTR_CPU_RTOL, "card and CPU losses disagree")
+    # a profiled stretch: a pass over one file
+    one = dataset(files[:1])
+    prof = profile_call(lambda: exe.train_from_dataset(
+        main, one, scope=scope, fetch_list=[loss], print_period=1))
+    per = -(-cfg["rows"] // cfg["batch"])
+    print(f"[ctr_dataset] a profiled pass over one file ({per} batches): "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
+          f"(idle {1 - prof['busy_ms'] / prof['wall_ms']:.3f}), launches "
+          f"{prof['launches'] / per:.1f} and host syncs "
+          f"{prof['syncs'] / per:.1f} a batch")
+    # inference leaves the parameters as they were
+    before = {n: scope.find_var(n).get().value.clone() for n in params}
+    t0 = time.perf_counter()
+    inf = exe.infer_from_dataset(test, dataset(files[:1]), scope=scope,
+                                 fetch_list=[loss.name], print_period=1)
+    same = all(torch.equal(before[n], scope.find_var(n).get().value)
+               for n in params)
+    print(f"[ctr_dataset] infer_from_dataset: {len(inf[loss.name])} batches "
+          f"in {time.perf_counter() - t0:.3f} s, parameters "
+          f"{'unchanged' if same else 'CHANGED'}")
+    check(same, "infer_from_dataset changed the parameters")
+    check(len(inf[loss.name]) == per and all(
+        math.isfinite(x) for x in inf[loss.name]), "infer pass losses")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7515,6 +8087,12 @@ def main():
     new_phases_s += time.perf_counter() - t_new
     print(f"[time] dy2static_nmt, static_decoders and proto_model: "
           f"{new_phases_s:.1f} s of command time")
+    t_new = time.perf_counter()
+    phase_resnet_loader(tpt, dev)
+    torch.cuda.empty_cache()
+    phase_ctr_dataset(tpt, dev)
+    print(f"[time] resnet_loader and ctr_dataset: "
+          f"{time.perf_counter() - t_new:.1f} s of command time")
     nmt_rows, nmt_errs = phase_nmt_kernels(fa, dev)
     # fp32 rows: launches on the O1 path (phase bert), beside those of the
     # eager path (phase eager_bert); bf16 rows: on the O2 path (phase

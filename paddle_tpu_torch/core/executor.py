@@ -587,3 +587,52 @@ class Executor:
                     and not bool(torch.isfinite(val).all()):
                 raise EnforceNotMet(
                     f"Operator {op.type} output {name!r} contains Inf/Nan")
+
+    # -- dataset training entry points (ref: executor.py:1456-1469
+    # train_from_dataset/infer_from_dataset -> C++ Trainer runtime) --
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread: int = 0, debug: bool = False,
+                           fetch_list=None, fetch_info=None,
+                           print_period: int = 100, fetch_handler=None,
+                           opt_info=None, ps_client=None):
+        """Run the whole dataset through the program once (one pass),
+        the MultiTrainer/HogwildWorker path: every batch is one
+        :meth:`run` on this executor's device. Returns the fetch history
+        dict produced by the trainer."""
+        return self._run_from_dataset(
+            program, dataset, scope, thread, debug, fetch_list,
+            fetch_info, print_period, opt_info, ps_client,
+            fetch_handler, infer=False)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread: int = 0, debug: bool = False,
+                           fetch_list=None, fetch_info=None,
+                           print_period: int = 100, fetch_handler=None,
+                           opt_info=None, ps_client=None):
+        """Inference pass: same streaming loop with the worker marked
+        infer (callers pass a program without optimizer ops, as the
+        reference does)."""
+        return self._run_from_dataset(
+            program, dataset, scope, thread, debug, fetch_list,
+            fetch_info, print_period, opt_info, ps_client,
+            fetch_handler, infer=True)
+
+    def _run_from_dataset(self, program, dataset, scope, thread, debug,
+                          fetch_list, fetch_info, print_period, opt_info,
+                          ps_client, fetch_handler, infer):
+        from ..trainer import TrainerFactory, run_trainer
+        if dataset is None:
+            raise NotFoundError("train_from_dataset needs a dataset")
+        program = program or default_main_program()
+        trainer = TrainerFactory()._create_trainer(opt_info)
+        if thread:
+            trainer._set_thread(thread)
+            dataset.set_thread(thread)
+        trainer._set_debug(debug)
+        trainer._set_infer(infer)
+        trainer._set_program(program)
+        trainer._set_fetch_var_and_info(fetch_list or [], fetch_info,
+                                        print_period)
+        return run_trainer(self, program, dataset, trainer, scope=scope,
+                           ps_client=ps_client,
+                           fetch_handler=fetch_handler)

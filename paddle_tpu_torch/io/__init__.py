@@ -6,8 +6,9 @@ python/paddle/fluid/io.py save/load :1669,1730, save/load_persistables
 the two packages read each other's files: state dicts as ``np.savez``
 archives, a program as JSON next to a ``params.npz`` archive;
 ``load_inference_model`` also reads the reference's protobuf
-``__model__`` (``inference/proto_program.py``). The DataLoader and
-datasets wait for ROADMAP Queue 1 item 6.
+``__model__`` (``inference/proto_program.py``). The input pipeline is
+``io/dataloader.py``, whose names this module re-exports as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -22,6 +23,10 @@ from ..core.enforce import NotFoundError
 from ..core.program import Program
 from ..core.scope import Scope, global_scope
 from ..core.tensor import TpuTensor
+from .dataloader import (BatchSampler, DataLoader, Dataset,  # noqa: F401
+                         DistributedBatchSampler, IterableDataset,
+                         RandomSampler, SequenceSampler, TensorDataset,
+                         default_collate_fn)
 
 _STATE_SUFFIX = ".pdparams.npz"
 _OPT_SUFFIX = ".pdopt.npz"

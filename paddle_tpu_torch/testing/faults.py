@@ -1,15 +1,19 @@
-"""Deterministic fault injection at the serving plane's request site.
+"""Deterministic fault injection at the serving request site and the
+dataloader's batch site.
 
-Port of the part of ``paddle_tpu/testing/faults.py`` that serving runs:
-one kind, ``slow@ms=M,request=N[,times=T]``, fired by the one hook the
-port calls, :func:`on_request`, which sleeps M ms when the scheduler is
-about to execute the batch that holds the Nth admitted request (the
-straggler-under-load trigger of the deadline tests). A spec is armed
-explicitly with :func:`arm`; a malformed one, or one of the reference's
-other kinds (crash, sigterm, hang, rpc, ...), raises
-:class:`FaultSpecError` there, because the port has no site that fires
-them yet (ROADMAP Queue 1 item 9). Every fired injection is counted
-(``faults/fired/<kind>``) and recorded in the flight recorder's ring.
+Port of the part of ``paddle_tpu/testing/faults.py`` that the port's
+sites run: one kind, ``slow``, with exactly one trigger,
+``slow@ms=M,request=N[,times=T]`` or ``slow@ms=M,batch=N[,times=T]``.
+:func:`on_request` sleeps M ms when the scheduler is about to execute
+the batch that holds the Nth admitted request (the straggler-under-load
+trigger of the deadline tests); :func:`on_batch` sleeps M ms before the
+DataLoader hands its Nth batch of a pass to the consumer. A spec is
+armed explicitly with :func:`arm`; a malformed one, or one of the
+reference's other kinds (crash, sigterm, hang, rpc, ...), also at
+``batch=``, raises :class:`FaultSpecError` there, because the port has
+no site that fires them yet (ROADMAP Queue 1 item 9). Every fired
+injection is counted (``faults/fired/<kind>``) and recorded in the
+flight recorder's ring.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ from typing import Dict, List, Optional
 from ..observability import flight_recorder as _flight
 from ..observability import metrics as _metrics
 
-_KEYS = {"ms": float, "request": int, "times": int}
+_KEYS = {"ms": float, "request": int, "batch": int, "times": int}
+_SITES = ("request", "batch")
 
 _lock = threading.Lock()
 _spec: Optional["FaultSpec"] = None
@@ -58,11 +63,13 @@ def _parse_one(frag: str) -> Injection:
     kind, at, body = frag.partition("@")
     if not at:
         raise FaultSpecError(
-            f"fault spec {frag!r}: expected 'slow@ms=M,request=N'")
+            f"fault spec {frag!r}: expected 'slow@ms=M,request=N' or "
+            f"'slow@ms=M,batch=N'")
     if kind.strip() != "slow":
         raise FaultSpecError(
             f"fault spec {frag!r}: kind {kind.strip()!r} is not ported "
-            f"(only 'slow' at the serving request site is; the rest "
+            f"(only 'slow' at the serving request site and the "
+            f"dataloader batch site is; the rest "
             f"waits for ROADMAP Queue 1 item 9)")
     params: Dict[str, float] = {}
     for item in filter(None, (i.strip() for i in body.split(","))):
@@ -79,9 +86,10 @@ def _parse_one(frag: str) -> Injection:
         except ValueError:
             raise FaultSpecError(
                 f"fault spec {frag!r}: {key}={val!r} is not a number")
-    if "ms" not in params or "request" not in params:
+    if "ms" not in params or sum(k in params for k in _SITES) != 1:
         raise FaultSpecError(
-            f"fault spec {frag!r}: slow needs ms= and request=")
+            f"fault spec {frag!r}: slow needs ms= and request= or "
+            f"batch= (exactly one of the two)")
     return Injection(params, frag)
 
 
@@ -101,15 +109,18 @@ class FaultSpec:
             raise FaultSpecError(f"fault spec {text!r} is empty")
         return cls(injections, text)
 
-    def fire_request(self, request: int):
-        # decide + count under the module lock, sleep outside it
+    def fire_site(self, site: str, n: int):
+        """Fire the injections triggered at ordinal ``n`` of ``site``
+        ("request" or "batch"): decide + count under the module lock
+        (dataloader and serving threads race a times-limited budget),
+        sleep outside it."""
         with _lock:
             hits = [inj for inj in self.injections if not inj.exhausted()
-                    and int(inj.params["request"]) == request]
+                    and inj.params.get(site) == n]
             for inj in hits:
                 inj.fired += 1
         for inj in hits:
-            _execute(inj, "request", {"request": request})
+            _execute(inj, site, {site: n})
 
 
 def _execute(inj: Injection, site: str, ctx: dict):
@@ -164,4 +175,13 @@ def on_request(n: int):
     global read."""
     s = _spec
     if s is not None:
-        s.fire_request(int(n))
+        s.fire_site("request", int(n))
+
+
+def on_batch(n: int):
+    """Dataloader batch about to be handed to the consumer, 1-based
+    within the pass: the ``slow@ms=M,batch=N`` trigger. Disarmed, it
+    costs one module global read."""
+    s = _spec
+    if s is not None:
+        s.fire_site("batch", int(n))

@@ -15,7 +15,8 @@ one O1 step under the profiler: launches, host syncs, device busy),
 (then K1-K3 at its shape, ``phase_ernie_kernels``), ``dy2static_nmt``
 (then K1-K3 at its shape, ``phase_nmt_kernels``), ``static_decoders``,
 ``proto_model`` (after ``phase_predictor``, which saves the artifacts it
-reads, under ``build/serving``) and ``fp16`` (phase timing at fp16). To
+reads, under ``build/serving``), ``resnet_loader``, ``ctr_dataset`` and
+``fp16`` (phase timing at fp16). To
 compare two commits on one card, run them in turns in one call, one
 process each, e.g. parent, change, change, parent.
 """
@@ -118,6 +119,10 @@ def main():
             shutil.rmtree(workdir, ignore_errors=True)
             paths = cs.phase_predictor(tpt, fa, dev, workdir)
             cs.phase_proto_model(tpt, fa, dev, paths, workdir)
+        elif ph == "resnet_loader":
+            cs.phase_resnet_loader(tpt, dev)
+        elif ph == "ctr_dataset":
+            cs.phase_ctr_dataset(tpt, dev)
         elif ph == "fp16":
             cs.phase_timing(fa, dev, torch.float16)
         else:

@@ -358,3 +358,42 @@ def test_static_dropout_grad_uses_the_forward_mask(cuda, seed):
         np.testing.assert_array_equal(rm, cm)
         for a, b in zip(rg, cg):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_native_feeder_builds_into_build_and_feeds_the_card(cuda, tmp_path):
+    """The port's native MultiSlot feeder on the card machine: g++ builds
+    it from the port's own source into build/paddle_tpu_torch/ (nothing
+    beside the source), a QueueDataset reads a small file through it
+    (each batch counted), and the executor's run on the card sums what it
+    fed, equal to the file's numbers."""
+    import numpy as np
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import native, static
+    from paddle_tpu_torch.observability import metrics
+    path = tmp_path / "part-0.txt"
+    path.write_text("".join(f"2 {i}.5 -{i} 2 {i} {i + 7} 1 {i % 2}\n"
+                            for i in range(10)))
+    assert native.available()
+    lib = native.library_path()
+    assert lib.exists() and lib.parent == native.BUILD_DIR
+    assert not list(native._SRC.parent.parent.rglob("*.so"))
+    tpt.set_device("cuda")
+    main = tpt.Program()
+    with static.program_guard(main, tpt.Program()):
+        d = static.data("d", [-1, 2], "float32")
+        s = static.data("s", [-1, 2], "int64")
+        lab = static.data("l", [-1, 1], "int64")
+        total = static.nn.reduce_sum(d)
+    ds = tpt.DatasetFactory().create_dataset("QueueDataset")
+    ds.set_batch_size(4)
+    ds.set_filelist([str(path)])
+    ds.set_use_var([d, s, lab])
+    before = metrics.metric_get("dataset/native_batches") or 0
+    hist = tpt.Executor().train_from_dataset(main, ds, scope=tpt.Scope(),
+                                             fetch_list=[total],
+                                             print_period=1)
+    assert metrics.metric_get("dataset/native_batches") - before == 3
+    want = [sum(i + 0.5 - i for i in range(lo, min(lo + 4, 10)))
+            for lo in (0, 4, 8)]
+    np.testing.assert_allclose(hist[total.name], want, rtol=1e-6)

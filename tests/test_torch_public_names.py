@@ -1,11 +1,14 @@
 """Every public name of the reference's ``dygraph``, ``nn``, ``static``,
 ``static.nn``, ``static.detection``, ``tensor_api``, ``static.decoder``,
 ``static.contrib_layers``, ``static.nest_utils``, ``static.analysis``,
-``inference.proto_program`` and ``jit.dy2static`` exists in the port's
-module of the same name (F5: ``dygraph.VarBase`` was missing), less the
-names a named ROADMAP Queue 1 item still defers, which raise naming it
-or are absent until it lands, and less the JAX tape's internals, which
-have no twin.
+``inference.proto_program``, ``jit.dy2static``, ``io``,
+``io.dataloader``, ``dataset``, ``trainer``, ``incubate.data_generator``,
+``vision.transforms``, ``vision.datasets``, ``vision.image_utils`` and
+``text.datasets`` exists in the port's module of the same name (F5:
+``dygraph.VarBase`` was missing), less the names a named ROADMAP Queue 1
+item still defers, which raise naming it or are absent until it lands,
+and less the JAX tape's internals, which have no twin. ``io.download``
+has no twin: nothing is downloaded.
 
 A module's public names are its ``__all__`` where it has one, else the
 names of ``dir()`` that are not private and not modules. The deferred
@@ -23,7 +26,13 @@ from paddle_tpu_torch.core.enforce import UnimplementedError
 # the JAX package's tape (``paddle_tpu/dygraph/tracer.py``): the port's
 # tape is torch's autograd, so its node class and its tracing of a jax
 # function have no twin
-NO_TWIN = {"dygraph": {"TapeNode", "trace_with_fn"}}
+NO_TWIN = {"dygraph": {"TapeNode", "trace_with_fn"},
+           # typing names the reference module imports and the port's
+           # does not use
+           "io.dataloader": {"Callable", "Iterable", "Optional"}}
+
+# reference modules with no twin in the port
+NO_TWIN_MODULES = ("io.download",)
 
 # ROADMAP Queue 1 item 8 (the selected-rows ops the two selected-rows
 # builders append)
@@ -40,7 +49,14 @@ MODULES = {"dygraph": "dygraph", "nn": "nn", "static": "static",
            "static.nest_utils": "static.nest_utils",
            "static.analysis": "static.analysis",
            "inference.proto_program": "inference.proto_program",
-           "jit.dy2static": "jit.dy2static"}
+           "jit.dy2static": "jit.dy2static", "io": "io",
+           "io.dataloader": "io.dataloader", "dataset": "dataset",
+           "trainer": "trainer",
+           "incubate.data_generator": "incubate.data_generator",
+           "vision.transforms": "vision.transforms",
+           "vision.datasets": "vision.datasets",
+           "vision.image_utils": "vision.image_utils",
+           "text.datasets": "text.datasets"}
 
 
 def _module(package, name):
@@ -98,3 +114,10 @@ def test_dygraph_varbase_is_the_eager_tensor():
     from paddle_tpu_torch import dygraph, nn
     assert dygraph.VarBase is nn.VarBase is torch.Tensor
     assert isinstance(tpt.to_tensor([1.0, 2.0]), dygraph.VarBase)
+
+
+@pytest.mark.parametrize("name", NO_TWIN_MODULES)
+def test_module_without_a_twin(name):
+    importlib.import_module(f"paddle_tpu.{name}")
+    with pytest.raises(ModuleNotFoundError):
+        importlib.import_module(f"paddle_tpu_torch.{name}")

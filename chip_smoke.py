@@ -302,6 +302,35 @@ Phases, each of which fails the run (non-zero exit) when a check fails:
      and host syncs a batch), and infer_from_dataset leaving the
      parameters bit-equal. Phases 45-46 print their command time
      together.
+  47. hapi_ernie, the first main path of the hapi slice: ERNIE 1.0 base
+     (text.models.ernie_base, dropout 0.1) with dropout and Linear(768, 2)
+     on its pooled output, PaddleNLP run_glue's classifier, fine-tuned
+     through paddle.Model (AdamW 2e-5 decaying linearly, CrossEntropyLoss,
+     Accuracy) on a seeded SST-2-shaped io.Dataset at batch 32, seq 128
+     (no padding: K1-K3 in fp32): the first step of a dropout-0 copy
+     against the CPU within 1e-5, fit for one epoch of 32 steps with
+     ProgBarLogger, ModelCheckpoint, EarlyStopping and
+     LRSchedulerCallback, evaluate, predict, save and load into a fresh
+     Model (the same evaluation); steady step time, samples/s, peak
+     memory, launches (K1-K3 12 a step, K1 12 an eval batch), host syncs
+     and device busy of a profiled step;
+  48. export_serve, the second: the ERNIE 1.0 base encoder with its
+     next-sentence head (static_cases.ernie_program, seq 128) saved,
+     exported by inference.export_stablehlo into one torch.export archive
+     (.pt2) at batch 8 and loaded by load_exported on the card: outputs
+     against Predictor within 1e-5, K1 12 launches a call from the
+     archive's graph (the paddle_tpu_torch::flash_fwd custom op), no
+     blockwise call; served as a load-path-B tenant (64 requests from 4
+     threads: requests/s, p50, p99, every answer against the archive's
+     call); the C-API run of an inference CompiledProgram with
+     PaddleTensor feeds against Predictor; the export's time and the
+     archive's size. Phases 47-48 print their command time together,
+     and K1-K3 are then timed at the fine-tune's shape (B32 S128 H12 D64)
+     and K1 at the served one (B8), fp32, as in phase 3. Then K1's host
+     time a call at BERT-base's shape on each route (phase_dispatch):
+     the wrapper against the custom op, and FlashAttentionFunction over
+     the op against the same over the wrapper, with and without the
+     backward.
 Phase 3 also times K1-K3 in fp16 at BERT-base.
 The last two lines are the kernels' JSON record (each kernel at fp32,
 its launches from phase 7 and, as launches_eager_bert, from phase 27;
@@ -311,7 +340,11 @@ fp16, its launches from phase 6's fp16 loop; as <name>_gpt at GPT-3
 reaches them on the static ERNIE step with launches_static_ernie, and
 as <name>_ernie at its shape with its launches, from phase 23;
 flash_fwd_nmt and flash_fwd_nmt_causal at the NMT's shape, with the
-launches of each route in phase 43) and {"ok": true, "device": {...}}. Phase 18 checks its own K1-K3 launches. The [predictor] line
+launches of each route in phase 43; <name>_hapi at the fine-tune's
+shape with the launches of its fit and of a train step, phase 47;
+flash_fwd_served at the
+served export's shape with the launches over its served requests, phase
+48) and {"ok": true, "device": {...}}. Phase 18 checks its own K1-K3 launches. The [predictor] line
 says how a bfloat16 fetch comes to the host (ml_dtypes' bfloat16, or
 float32 where ml_dtypes does not import).
 """
@@ -8012,6 +8045,556 @@ def phase_ctr_dataset(tpt, dev):
         math.isfinite(x) for x in inf[loss.name]), "infer pass losses")
 
 
+# ERNIE 1.0 base fine-tuned for sentence classification through
+# paddle.Model, as PaddleNLP's run_glue trains it on SST-2: batch 32 at
+# seq 128, AdamW 2e-5 decaying linearly to 0, dropout 0.1
+HAPI_ERNIE = dict(batch=32, seq=128, steps=32, eval_batches=4,
+                  predict_batches=4, lr=2e-5, dropout=0.1, classes=2)
+HAPI_LOSS_RTOL = 1e-5   # card against CPU, first step, dropout 0
+HAPI_SHAPE = (32, 128, 12, 64, False)      # B, S, H, D: the fine-tune's
+SERVED_SHAPE = (8, 128, 12, 64, False)     # and the served export's
+# the ERNIE 1.0 base encoder with its next-sentence head, exported and
+# served at batch 8, seq 128; its outputs against Predictor's (path A)
+EXPORT_SERVE = dict(batch=8, seq=128, requests=64, clients=4)
+EXPORT_RTOL = 1e-5
+
+
+def port_hapi_api():
+    """The port's surface the hapi builders below take (the CPU tests
+    hand them the JAX package's)."""
+    import types
+    from paddle_tpu_torch import io, metric, nn, optimizer, text
+    from paddle_tpu_torch import hapi
+    return types.SimpleNamespace(io=io, metric=metric, nn=nn, text=text,
+                                 optimizer=optimizer, hapi=hapi)
+
+
+def seq_classifier(api, dropout=0.1, classes=2, **bert_kw):
+    """PaddleNLP's ErnieForSequenceClassification (run_glue's model) as a
+    user Layer built with ``api`` (either package): the encoder
+    (``text.models.ernie_base()`` unless ``bert_kw`` gives BertModel's
+    widths), dropout on the pooled output, ``nn.Linear(d_model,
+    classes)``. forward(input_ids, token_type_ids) -> logits."""
+    class SeqClassifier(api.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            models = api.text.models
+            self.ernie = (models.BertModel(dropout=dropout, **bert_kw)
+                          if bert_kw else models.ernie_base(dropout=dropout))
+            self.dropout = dropout
+            self.classifier = api.nn.Linear(self.ernie.d_model, classes)
+
+        def forward(self, input_ids, token_type_ids):
+            _, pooled = self.ernie(input_ids, token_type_ids)
+            if self.dropout:
+                pooled = api.nn.functional.dropout(
+                    pooled, self.dropout, training=self.training)
+            return self.classifier(pooled)
+
+    return SeqClassifier()
+
+
+def sst2_dataset(io, n, seq, vocab, seed):
+    """An SST-2-shaped ``io.Dataset`` made from a seed: ``n`` rows of
+    (token ids [seq], sentence ids [seq], label [1]), every row filling
+    all ``seq`` tokens ([CLS] = 1 first, [SEP] = 2 last, no padding, so
+    no attention mask), sentence ids 0, and as label the parity of the
+    first word's id, so the set can be learned."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(5, vocab, (n, seq)).astype(np.int64)
+    ids[:, 0], ids[:, -1] = 1, 2
+    types_ = np.zeros_like(ids)
+    labels = (ids[:, 1:2] % 2).astype(np.int64)
+
+    class SST2Like(io.Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return ids[i], types_[i], labels[i]
+
+    return SST2Like()
+
+
+def hapi_model(api, net, lr):
+    """``Model(net)`` prepared as run_glue prepares it: AdamW over the
+    net's parameters at ``lr`` (a number or a scheduler),
+    CrossEntropyLoss and Accuracy."""
+    model = api.hapi.Model(net)
+    model.prepare(api.optimizer.AdamW(learning_rate=lr,
+                                      parameters=net.parameters()),
+                  api.nn.CrossEntropyLoss(), api.metric.Accuracy())
+    return model
+
+
+def _first_batch(ds, batch):
+    rows = [ds[i] for i in range(batch)]
+    return [np.stack([r[j] for r in rows]) for j in range(3)]
+
+
+def phase_hapi_ernie(tpt, fa, dev):
+    """ERNIE 1.0 base fine-tuned for sentence classification through
+    paddle.Model on the card (HAPI_ERNIE): the first step of a dropout-0
+    copy against the same network on the CPU (HAPI_LOSS_RTOL), then fit
+    for one epoch with ProgBarLogger, ModelCheckpoint, EarlyStopping and
+    LRSchedulerCallback (by step: AdamW's linear decay), evaluate,
+    predict, save, load into a fresh Model and evaluate again (the same
+    loss and accuracy). K1-K3 launch 12 times a train step each and K1
+    12 times an eval batch; nothing takes the blockwise route. Prints the
+    steady step time (Model's StepTimer), samples/s, peak memory, and
+    the launches, host syncs and device busy of one profiled step.
+    Returns ({kernel: launches in fit}, {kernel: launches a train
+    step})."""
+    import os
+    cfg = HAPI_ERNIE
+    api = port_hapi_api()
+    hapi = api.hapi
+    tpt.set_device(dev)
+    tpt.seed(0)
+    t_phase = time.perf_counter()
+    net = seq_classifier(api, cfg["dropout"], cfg["classes"])
+    n_params = sum(p.numel() for p in net.parameters())
+    vocab = net.ernie.vocab_size
+    layers = len(net.ernie.encoder.layers)      # K1-K3 launches a step
+    b, seq = cfg["batch"], cfg["seq"]
+    train = sst2_dataset(api.io, b * cfg["steps"], seq, vocab, 0)
+    dev_set = sst2_dataset(api.io, b * cfg["eval_batches"], seq, vocab, 1)
+    test_set = sst2_dataset(api.io, b * cfg["predict_batches"], seq,
+                            vocab, 2)
+    print(f"[hapi_ernie] ERNIE 1.0 base classifier: {n_params:,} "
+          f"parameters, vocab {vocab}; {len(train)} train rows (SST-2 "
+          f"shaped, seq {seq}, no padding), {len(dev_set)} dev, "
+          f"{len(test_set)} test")
+
+    # the first step, dropout 0: the card (K1-K3) against the CPU (the
+    # plain versions) from the same weights
+    state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    ins_np = _first_batch(train, b)
+    check_net = seq_classifier(api, 0.0, cfg["classes"])
+    check_net.set_state_dict(state)
+    card = hapi_model(api, check_net, cfg["lr"])
+    k0 = [w.launches for w in fa.WRAPPERS]
+    card_loss = card.train_batch(ins_np[:2], ins_np[2:])[0]
+    first_launches = [w.launches - n for w, n in zip(fa.WRAPPERS, k0)]
+    del card, check_net
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tpt.set_device("cpu")
+    try:
+        cpu_net = seq_classifier(api, 0.0, cfg["classes"])
+        cpu_net.set_state_dict(state)
+        cpu_loss = hapi_model(api, cpu_net, cfg["lr"]).eval_batch(
+            ins_np[:2], ins_np[2:])[0]
+    finally:
+        tpt.set_device(dev)
+    del cpu_net
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"[hapi_ernie] first step, dropout 0: card loss {card_loss!r}, "
+          f"CPU {cpu_loss!r} (CPU forward {time.perf_counter() - t0:.1f} "
+          f"s): rel err {rel:.3e} (bound {HAPI_LOSS_RTOL:g}); K1-K3 "
+          f"launches {first_launches}")
+    check(rel <= HAPI_LOSS_RTOL, "the first loss on the card disagrees "
+                                 "with the CPU's")
+    check(first_launches == [layers] * 3, "K1-K3 not once a layer each in "
+                                          "the first step")
+
+    # fit, as run_glue: linear decay to 0 over the epoch, by step
+    sched = api.optimizer.lr.PolynomialDecay(
+        learning_rate=cfg["lr"], decay_steps=cfg["steps"], end_lr=0.0)
+    model = hapi_model(api, net, sched)
+    ckpt = "build/hapi_ernie"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    stopper = hapi.EarlyStopping(monitor="acc", mode="max", patience=1,
+                                 save_best_model=False)
+    cbks = [hapi.ProgBarLogger(log_freq=8, verbose=2),
+            hapi.ModelCheckpoint(save_freq=1, save_dir=ckpt), stopper,
+            hapi.LRSchedulerCallback(by_step=True, by_epoch=False)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in fa.WRAPPERS:
+        w.launches = 0
+    calls = fa.blockwise_route.calls
+    t0 = time.perf_counter()
+    model.fit(train, eval_data=dev_set, batch_size=b, epochs=1, verbose=2,
+              drop_last=True, callbacks=cbks)
+    fit_s = time.perf_counter() - t0
+    fit_launches = {w.__name__: w.launches for w in fa.WRAPPERS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rep = model._step_timer.report()
+    steps = rep["steps"]
+    step_ms = rep["steady_step_ms"]
+    print(f"[hapi_ernie] fit: {steps} steps and an eval of "
+          f"{cfg['eval_batches']} batches in {fit_s:.2f} s (two "
+          f"checkpoints included); first step {rep['first_step_ms']:.3f} "
+          f"ms, steady step_ms {step_ms:.3f} (Model's StepTimer, loss "
+          f"read back) samples/s {b / step_ms * 1e3:.2f}, peak_mem "
+          f"{peak:.3f} GiB; lr after {sched()!r}; launches {fit_launches} "
+          f"(expected K1 {layers * (steps + cfg['eval_batches'])}, K2 and "
+          f"K3 {layers * steps})")
+    check(steps == cfg["steps"], f"fit ran {steps} steps")
+    check(fit_launches == {
+        "flash_fwd": layers * (steps + cfg["eval_batches"]),
+        "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps},
+        "K1-K3 launches in fit")
+    check(sched() == 0.0, "LRSchedulerCallback did not step the decay "
+                          "to its end")
+    check(sorted(os.listdir(ckpt)) == [
+        "0.pdopt.npz", "0.pdparams.npz", "final.pdopt.npz",
+        "final.pdparams.npz"], f"ModelCheckpoint wrote {os.listdir(ckpt)}")
+    check(not stopper.stop_training, "EarlyStopping stopped after its "
+                                     "first evaluation")
+
+    # one profiled train step: launches, host syncs, device busy
+    ins_np = _first_batch(train, b)
+    prof = profile_call(lambda: model.train_batch(ins_np[:2], ins_np[2:]))
+    print(f"[hapi_ernie] one profiled train step: {prof['launches']} kernel "
+          f"launches, {prof['syncs']} host syncs (expected 6: the loss's "
+          f"float, the metric's reads of the logits and the labels, a "
+          f"pageable copy of each of the 3 feeds), "
+          f"device busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} "
+          f"ms ({prof['busy_ms'] / prof['wall_ms']:.3f})")
+
+    # evaluate, predict
+    k_eval = [w.launches for w in fa.WRAPPERS]
+    t0 = time.perf_counter()
+    res = model.evaluate(dev_set, batch_size=b, verbose=0)
+    eval_s = time.perf_counter() - t0
+    eval_launches = {w.__name__: w.launches - n
+                     for w, n in zip(fa.WRAPPERS, k_eval)}
+    eval_k1 = eval_launches["flash_fwd"] / cfg["eval_batches"]
+    # a train step's launches: fit's, less those of its evaluation (the
+    # dev set this evaluate ran), over its steps
+    a_step = {name: (n - eval_launches[name]) / steps
+              for name, n in fit_launches.items()}
+    t0 = time.perf_counter()
+    preds = model.predict(test_set, batch_size=b, stack_outputs=True)
+    pred_s = time.perf_counter() - t0
+    print(f"[hapi_ernie] evaluate {res} in {eval_s:.3f} s, K1 {eval_k1:g} "
+          f"a batch; predict {preds[0].shape} {preds[0].dtype} in "
+          f"{pred_s:.3f} s")
+    print(f"[hapi_ernie] launches a train step (fit's less its "
+          f"evaluation's, over {steps} steps): {a_step}")
+    check(eval_k1 == layers, "K1 not once a layer an eval batch")
+    check(a_step == dict.fromkeys(fit_launches, layers),
+          "K1-K3 not once a layer each a train step")
+    check(preds[0].shape == (len(test_set), cfg["classes"]) and
+          np.isfinite(preds[0]).all(), "predict's output")
+    check(all(math.isfinite(x) for x in res["loss"]), "eval loss")
+
+    # save, load into a fresh Model, the same evaluation
+    t0 = time.perf_counter()
+    path = f"{ckpt}/saved"
+    model.save(path)
+    fresh = hapi_model(api, seq_classifier(api, cfg["dropout"],
+                                           cfg["classes"]), cfg["lr"])
+    fresh.load(path)
+    res2 = fresh.evaluate(dev_set, batch_size=b, verbose=0)
+    print(f"[hapi_ernie] save, load into a fresh Model, evaluate: {res2} "
+          f"({'bit-equal' if res2 == res else 'NOT bit-equal'}) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(res2["acc"] == res["acc"] and abs(res2["loss"][0] - res["loss"][0])
+          <= 1e-6 * abs(res["loss"][0]), "the reloaded Model evaluates "
+                                         "otherwise")
+    check(fa.blockwise_route.calls == calls, "the blockwise route ran")
+    del model, fresh, net
+    torch.cuda.empty_cache()
+    print(f"[time] hapi_ernie: {time.perf_counter() - t_phase:.1f} s of "
+          f"command time")
+    return fit_launches, a_step
+
+
+def ernie_serve_feeds(cfg, batch, seq, seed):
+    """One request's feeds for the served ERNIE export: token ids drawn
+    from the vocabulary, positions 0..seq-1, sentence ids 0 then 1 from
+    a random split."""
+    rs = np.random.RandomState(seed)
+    split = rs.randint(seq // 4, 3 * seq // 4, batch)
+    return {"src_ids": rs.randint(0, cfg["vocab"], (batch, seq)).astype(
+                np.int64),
+            "pos_ids": np.tile(np.arange(seq, dtype=np.int64), (batch, 1)),
+            "sent_ids": (np.arange(seq)[None, :] >= split[:, None]).astype(
+                np.int64)}
+
+
+def phase_export_serve(tpt, fa, dev, workdir):
+    """The ERNIE 1.0 base encoder with its next-sentence head
+    (static_cases.ernie_program at ERNIE_BASE, seq 128, dropout 0, the
+    forward alone) saved by save_inference_model (feeds src_ids, pos_ids,
+    sent_ids; the next-sentence logits fetched: the masked-LM head and
+    mask_pos are pruned), exported by inference.export_stablehlo at batch
+    8 into one .pt2 (a torch.export archive) and loaded by load_exported
+    on the card: its outputs against Predictor's path-A run of the
+    directory (EXPORT_RTOL), K1 12 launches a call from the archive's
+    graph, no blockwise call; then the archive as a load-path-B tenant of
+    a PredictorServer, EXPORT_SERVE's requests from client threads, every
+    answer against the archive's direct call; then the C-API run of
+    CompiledProgram(prog)._with_inference_optimize(AnalysisConfig(dir))
+    with PaddleTensor feeds, against Predictor's. Prints the export's
+    time, the archive's size, requests/s, latency p50 / p99 and K1
+    launches. Returns K1's launches in a direct call of the archive and
+    over the served requests."""
+    import os
+    import threading
+    from paddle_tpu_torch import inference, io
+    from paddle_tpu_torch.inference.capi import AnalysisConfig, PaddleTensor
+    from paddle_tpu_torch.serving import PredictorServer
+    from paddle_tpu_torch.static import CompiledProgram
+    from paddle_tpu_torch.testing import static_cases as sc
+    cfg, run = sc.ERNIE_BASE, EXPORT_SERVE
+    b, seq = run["batch"], run["seq"]
+    api = sc.port_api()
+    tpt.set_device(dev)
+    tpt.seed(0)
+    t_phase = time.perf_counter()
+    built = sc.ernie_program(api, cfg, seq=seq, dropout=0, amp=False,
+                             optimize=False)
+    exe, scope = tpt.Executor(), tpt.Scope()
+    exe.run(built.startup, scope=scope)
+    path = f"{workdir}/ernie_base"
+    feeds = ["src_ids", "pos_ids", "sent_ids"]
+    with tpt.scope_guard(scope):
+        io.save_inference_model(
+            path, feeds, [built.main.global_block().var(built.nsp_logits)],
+            exe, main_program=built.main, scope=scope)
+    del scope
+    prog, feed_names, fetch_names = io.load_inference_model(
+        path, tpt.Executor(), scope=tpt.Scope())
+    types_ = prog.op_types()
+    print(f"[export_serve] ERNIE 1.0 base saved: feeds {feed_names}, "
+          f"fetch {fetch_names}, {len(types_)} ops "
+          f"({types_.count('flash_attention')} flash_attention, "
+          f"{types_.count('softmax_with_cross_entropy')} "
+          f"softmax_with_cross_entropy) in "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    check(feed_names == feeds and
+          types_.count("flash_attention") == cfg["layers"] and "softmax_with_cross_entropy" not in types_ and
+          "gather" not in types_, "the saved model is not the pruned "
+                                  "encoder with its next-sentence head")
+
+    pt2 = f"{workdir}/ernie_base.pt2"
+    specs = {n: (b, seq) for n in feeds}
+    int64 = {n: "int64" for n in feeds}
+    t0 = time.perf_counter()
+    inference.export_stablehlo(path, specs, pt2, int64)
+    export_s = time.perf_counter() - t0
+    size = os.path.getsize(pt2)
+    t0 = time.perf_counter()
+    call = inference.load_exported(pt2)
+    load_s = time.perf_counter() - t0
+    with open(pt2 + ".meta.json") as f:
+        meta = json.load(f)
+    print(f"[export_serve] export_stablehlo {export_s:.2f} s, archive "
+          f"{size:,} bytes ({size / 2 ** 20:.1f} MiB), load_exported "
+          f"{load_s:.2f} s; sidecar {meta}")
+    check(meta.get("out_batch_major") == [True], "the sidecar's flags")
+
+    feed = ernie_serve_feeds(cfg, b, seq, 0)
+    pred = inference.create_predictor(inference.Config(path))
+    want, = pred.run([feed[n] for n in feeds])
+    k1, calls = fa.flash_fwd.launches, fa.blockwise_route.calls
+    got = call(*[torch.from_numpy(feed[n]).to(dev) for n in feeds])
+    torch.cuda.synchronize()
+    launches = fa.flash_fwd.launches - k1
+    got = got[0].cpu().numpy()
+    err = rel_err(got, want)
+    close = np.allclose(got, want, rtol=EXPORT_RTOL, atol=0)
+
+    def median_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return sorted(times)[n // 2]
+
+    dev_feed = [torch.from_numpy(feed[n]).to(dev) for n in feeds]
+    exp_ms = median_ms(lambda: call(*dev_feed))
+    pred_ms = median_ms(lambda: pred.run([feed[n] for n in feeds]))
+    print(f"[export_serve] load_exported: {got.shape} {got.dtype} against "
+          f"Predictor (path A): rel err {err:.3e}, elementwise within rtol "
+          f"{EXPORT_RTOL:g} {close}, bit-equal {np.array_equal(got, want)}; "
+          f"K1 {launches} launches a call, blockwise calls "
+          f"{fa.blockwise_route.calls - calls}; ms a call median of 5: "
+          f"archive {exp_ms:.3f}, Predictor {pred_ms:.3f}")
+    check(np.isfinite(got).all() and close,
+          "the exported archive disagrees with Predictor")
+    check(launches == cfg["layers"], f"K1 launched {launches} times in a "
+                                     f"call")
+    check(fa.blockwise_route.calls == calls, "the blockwise route ran")
+
+    # the archive as a load-path-B tenant
+    srv = PredictorServer(cache_dir=None)
+    t0 = time.perf_counter()
+    model = srv.add_tenant("ernie_pt2", pt2)
+    add_s = time.perf_counter() - t0
+    pools = [[ernie_serve_feeds(cfg, b, seq, 100 * c + i)
+              for i in range(run["requests"] // run["clients"])]
+             for c in range(run["clients"])]
+    results = [[] for _ in pools]
+
+    def client(c):
+        for f in pools[c]:
+            t1 = time.perf_counter()
+            out = srv.predict("ernie_pt2", f, timeout=300)
+            results[c].append(((time.perf_counter() - t1) * 1e3, f,
+                               np.array(out[0])))
+
+    srv.start()
+    try:
+        srv.predict("ernie_pt2", feed, timeout=300)      # warm-up
+        k1 = fa.flash_fwd.launches
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(run["clients"])]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        window = time.perf_counter() - t0
+        served_k1 = fa.flash_fwd.launches - k1
+        stats = model.stats()
+    finally:
+        srv.stop()
+    check(not any(t.is_alive() for t in threads), "a client hung")
+    done = [r for rs in results for r in rs]
+    lat = np.array([r[0] for r in done])
+    p50, p99 = np.percentile(lat, [50, 99])
+    equal = all(np.array_equal(out, call(*[torch.from_numpy(f[n]).to(dev)
+                                           for n in feeds])[0].cpu().numpy())
+                for _, f, out in done)
+    print(f"[export_serve] PredictorServer, load path B: add_tenant "
+          f"{add_s:.2f} s, bucket {stats['buckets']}, compiles "
+          f"{stats['compiles']} warm_loads {stats['warm_loads']}, admission "
+          f"checked {stats['admission']['checked']}; {len(done)} requests "
+          f"of batch {b} from {run['clients']} threads in {window:.3f} s: "
+          f"{len(done) / window:.2f} requests/s, latency p50 {p50:.3f} ms "
+          f"p99 {p99:.3f} ms; K1 {served_k1} launches "
+          f"({served_k1 / max(len(done), 1):g} a request); every answer "
+          f"equals the archive's direct call {equal}")
+    check(len(done) == run["requests"], "requests lost")
+    check(equal, "a served answer differs from the archive's call")
+    check(stats["compiles"] == 0 and stats["warm_loads"] == 0,
+          "load path B prepared a bucket")
+    check(served_k1 == cfg["layers"] * len(done),
+          "K1 not once a layer a served request")
+
+    # the C-API run of an inference CompiledProgram
+    exe, scope = tpt.Executor(), tpt.Scope()
+    prog, feed_names, _ = io.load_inference_model(path, exe, scope=scope)
+    compiled = CompiledProgram(prog)._with_inference_optimize(
+        AnalysisConfig(path))
+    outs = exe.run(compiled, feed=[PaddleTensor(feed[n], name=n)
+                                   for n in feed_names], scope=scope)
+    capi = outs[0].as_ndarray()
+    print(f"[export_serve] C-API run: {[type(o).__name__ for o in outs]} "
+          f"{outs[0].name} {capi.shape}; against Predictor bit-equal "
+          f"{np.array_equal(capi, want)}, rel err {rel_err(capi, want):.3e}")
+    check(all(isinstance(o, PaddleTensor) for o in outs) and
+          np.allclose(capi, want, rtol=EXPORT_RTOL, atol=0),
+          "the C-API run disagrees with Predictor")
+    del call, pred, srv, model
+    torch.cuda.empty_cache()
+    print(f"[time] export_serve: {time.perf_counter() - t_phase:.1f} s of "
+          f"command time")
+    return {"a_call": launches, "served": served_k1}
+
+
+def phase_hapi_kernels(fa, dev):
+    """K1-K3 at the fine-tune's shape (HAPI_SHAPE) and K1 at the served
+    export's (SERVED_SHAPE), fp32, against their plain versions and timed
+    as phase_ernie_kernels does. Returns (rows, errors) by shape."""
+    out = {}
+    for label, shape in (("hapi", HAPI_SHAPE), ("served", SERVED_SHAPE)):
+        b, s, h, d, causal = shape
+        gen = torch.Generator(device=dev).manual_seed(31)
+        q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                      for _ in range(4))
+        print(f"[{label}_kernels] B{b} S{s} H{h} D{d} causal={causal} "
+              f"float32")
+        errs, _ = kernels_against_plain(fa, q, k, v, g, causal,
+                                        torch.float32)
+        del q, k, v, g
+        out[label] = (phase_timing(fa, dev, torch.float32, shape), errs)
+    return out
+
+
+DISPATCH = dict(calls=100, rounds=11)       # phase_dispatch
+
+
+def phase_dispatch(fa, dev, shape=BERT_SHAPE):
+    """The host time a call of K1 takes on each route, at BERT-base's
+    shape in fp32 (phase bert's O1 step calls K1 12 times): the wrapper
+    alone against the custom op (torch.ops.paddle_tpu_torch.flash_fwd);
+    and FlashAttentionFunction (whose forward calls the op), with no
+    input needing a gradient and for forward plus backward (K1, K2,
+    K3), against the same Function with its forward calling the wrapper
+    (the route before K1 was an op). A round times DISPATCH['calls']
+    calls of one route on the host clock with no sync among them (the
+    card's queue holds their launches), then waits for the card; routes
+    alternate round by round and the median round is taken. Returns
+    {route: host us a call}."""
+    class WrapperRoute(fa.FlashAttentionFunction):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, scale, block_size):
+            o, lse = fa.flash_fwd(q, k, v, causal, scale, block_size)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.attrs = (causal, scale, block_size)
+            return o
+
+    b, s, h, d, causal = shape
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                  for _ in range(4))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    attrs = (causal, d ** -0.5, 512)
+    op = torch.ops.paddle_tpu_torch.flash_fwd
+
+    def train(fn):
+        return lambda: torch.autograd.grad(fn.apply(*leaves, *attrs),
+                                           leaves, g)
+
+    routes = {
+        "wrapper": lambda: fa.flash_fwd(q, k, v, *attrs),
+        "op": lambda: op(q, k, v, *attrs),
+        "wrapper_function": lambda: WrapperRoute.apply(q, k, v, *attrs),
+        "op_function": lambda: fa.FlashAttentionFunction.apply(q, k, v,
+                                                               *attrs),
+        "wrapper_function_fwd_bwd": train(WrapperRoute),
+        "op_function_fwd_bwd": train(fa.FlashAttentionFunction)}
+    times = {name: [] for name in routes}
+    for r in range(DISPATCH["rounds"] + 1):         # round 0 warms up
+        for name, fn in routes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH["calls"]):
+                fn()
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if r:
+                times[name].append(dt / DISPATCH["calls"] * 1e6)
+    us = {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+    op_cost = us["op"] - us["wrapper"]
+    no_grad = us["op_function"] - us["wrapper_function"]
+    both = us["op_function_fwd_bwd"] - us["wrapper_function_fwd_bwd"]
+    print(f"[dispatch] host us a call of K1 at B{b} S{s} H{h} D{d} fp32, "
+          f"median of {DISPATCH['rounds']} rounds of {DISPATCH['calls']} "
+          f"calls: wrapper {us['wrapper']:.2f}, custom op {us['op']:.2f} "
+          f"({op_cost:+.2f}); FlashAttentionFunction over the wrapper / "
+          f"over the op, no grad {us['wrapper_function']:.2f} / "
+          f"{us['op_function']:.2f} ({no_grad:+.2f}), forward and "
+          f"backward {us['wrapper_function_fwd_bwd']:.2f} / "
+          f"{us['op_function_fwd_bwd']:.2f} ({both:+.2f}); at 12 calls a "
+          f"BERT O1 step: {12 * both / 1e3:+.4f} ms a step")
+    for name, t in times.items():
+        print(f"[dispatch] {name} rounds (us a call): "
+              f"{[round(x, 2) for x in t]}")
+    check(all(math.isfinite(x) and x > 0 for x in us.values()),
+          "dispatch times")
+    return us
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8093,6 +8676,13 @@ def main():
     phase_ctr_dataset(tpt, dev)
     print(f"[time] resnet_loader and ctr_dataset: "
           f"{time.perf_counter() - t_new:.1f} s of command time")
+    t_new = time.perf_counter()
+    hapi_launches, hapi_a_step = phase_hapi_ernie(tpt, fa, dev)
+    served = phase_export_serve(tpt, fa, dev, workdir)
+    print(f"[time] hapi_ernie and export_serve: "
+          f"{time.perf_counter() - t_new:.1f} s of command time")
+    hapi_kernels = phase_hapi_kernels(fa, dev)
+    phase_dispatch(fa, dev)
     nmt_rows, nmt_errs = phase_nmt_kernels(fa, dev)
     # fp32 rows: launches on the O1 path (phase bert), beside those of the
     # eager path (phase eager_bert); bf16 rows: on the O2 path (phase
@@ -8102,7 +8692,10 @@ def main():
     # the static ERNIE step also count its launches (phase static_ernie),
     # and _ernie rows time them at its shape; flash_fwd_nmt rows time K1
     # at the NMT's shape, plain and causal, with the launches of each
-    # route in phase dy2static_nmt
+    # route in phase dy2static_nmt; _hapi rows time K1-K3 at the hapi
+    # fine-tune's shape with their launches in its fit (phase hapi_ernie),
+    # flash_fwd_served K1 at the served export's with its launches over
+    # the served requests (phase export_serve)
     suffix = {torch.float32: "", torch.bfloat16: "_bf16",
               torch.float16: "_fp16"}
     record = {"kernels": [
@@ -8126,7 +8719,18 @@ def main():
              route="cuda", source=SOURCE, replaces=REPLACES["flash_fwd"],
              launches=nmt_routes["causal" if causal else "plain"],
              max_abs_err=nmt_errs[causal], **nmt_rows[causal])
-        for causal in (False, True)]}
+        for causal in (False, True)] + [
+        dict(name=name + "_hapi", route="cuda", source=SOURCE,
+             replaces=REPLACES[name], launches=hapi_launches[name],
+             launches_a_step=hapi_a_step[name],
+             max_abs_err=hapi_kernels["hapi"][1][name],
+             **hapi_kernels["hapi"][0][name])
+        for name in REPLACES] + [
+        dict(name="flash_fwd_served", route="cuda", source=SOURCE,
+             replaces=REPLACES["flash_fwd"], launches=served["served"],
+             launches_a_call=served["a_call"],
+             max_abs_err=hapi_kernels["served"][1]["flash_fwd"],
+             **hapi_kernels["served"][0]["flash_fwd"])]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,12 @@ the CPU with :func:`paddle_tpu_torch.device.set_device`.
 import importlib as _importlib
 
 from . import ops  # noqa: F401  (registers every op type)
+from . import metric  # noqa: F401
 from . import tensor_array  # noqa: F401
 from . import dataset  # noqa: F401
 from . import trainer  # noqa: F401
 from .dataset import DatasetFactory  # noqa: F401
+from .hapi import Model  # noqa: F401
 from .core import rng as _rng
 from .core.backward import append_backward, gradients  # noqa: F401
 from .core.dtype import (bfloat16, bool_, complex64, complex128,  # noqa: F401

@@ -432,10 +432,8 @@ class Executor:
         if program is not None and hasattr(program, "with_data_parallel"):
             compiled, program = program, program.program
             if compiled._is_inference and isinstance(feed, (list, tuple)):
-                raise UnimplementedError(
-                    "a positional C-API feed list into an inference "
-                    "CompiledProgram needs inference/capi.py (ROADMAP "
-                    "Queue 1 item 7)")
+                # C-API contract (ref: inference/api/api_impl.cc Run)
+                return self._run_inference_capi(compiled, feed, scope)
             place = compiled.place
         dev = place if place is not None and self.place is None \
             else self._device()
@@ -510,6 +508,25 @@ class Executor:
         # an eager run's fetches keep the LoD their ops declared
         return [TpuTensor(v, lods.get(n)) for n, v in zip(fetch_names,
                                                           fetches)]
+
+    def _run_inference_capi(self, compiled, feed_list, scope):
+        """The positional C-API run of an inference ``CompiledProgram``:
+        feeds (``PaddleTensor``, ``TpuTensor``, tensors or arrays) in the
+        loaded program's feed-target order, its fetch targets back as
+        ``PaddleTensor``s."""
+        from ..inference.capi import PaddleTensor
+        program = compiled.program
+        names = getattr(program, "_feed_target_names", None)
+        enforce(names is not None and len(names) == len(feed_list),
+                "inference CompiledProgram needs a program loaded via "
+                "load_inference_model (feed target order unknown) and "
+                f"exactly {len(names or [])} feeds",
+                InvalidArgumentError)
+        feed = {n: t.as_ndarray() if isinstance(t, PaddleTensor) else t
+                for n, t in zip(names, feed_list)}
+        fetch = list(getattr(program, "_fetch_target_names", []))
+        outs = self.run(compiled, feed=feed, fetch_list=fetch, scope=scope)
+        return [PaddleTensor(v, name=n) for n, v in zip(fetch, outs)]
 
     # -- internals --
     def _analysis(self, program, block, feed_vals, fetch_names,

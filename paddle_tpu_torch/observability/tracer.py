@@ -7,8 +7,9 @@ span lands in a bounded process buffer and, while it is open, sits in a
 ``torch.profiler.record_function`` range, so an active profiler trace
 shows it around the kernels it launched (where the reference forwards
 to ``jax.profiler.TraceAnnotation``). With tracing off, a span costs
-one module-global bool check. The chrome-trace export, counter
-samples and cross-thread stacks are ROADMAP Queue 1 item 11.
+one module-global bool check. Counter samples (``sample_counter``,
+which ``step_timer`` feeds) are kept the same way. The chrome-trace
+export and cross-thread stacks are ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -25,11 +26,14 @@ from .. import concurrency as _concurrency
 Span = namedtuple("Span", "name ts_us dur_us tid depth args")
 
 MAX_SPANS = 1 << 20             # the trace head is kept; overflow counted
+MAX_COUNTER_SAMPLES = 1 << 16
 
 _lock = _concurrency.make_lock("_lock")
 _enabled = False
 _spans: List[Span] = []
 _dropped = 0
+_counters: List[tuple] = []     # (name, ts_us, value) counter samples
+_counters_dropped = 0
 _t_origin = time.perf_counter()
 _flight_hook = None             # flight_recorder's span tap (or None)
 
@@ -64,17 +68,40 @@ def maybe_span(name: str, **args):
 
 
 def reset():
-    """Drop every recorded span."""
-    global _t_origin, _dropped
+    """Drop every recorded span and counter sample."""
+    global _t_origin, _dropped, _counters_dropped
     with _lock:
         _spans.clear()
         _dropped = 0
+        _counters.clear()
+        _counters_dropped = 0
         _t_origin = time.perf_counter()
 
 
 def set_flight_hook(fn):
     global _flight_hook
     _flight_hook = fn
+
+
+def sample_counter(name: str, value):
+    """Record a timestamped counter sample (a counter track in a chrome
+    trace, e.g. ``hapi/step_ms`` over time). One bool check when tracing
+    is off; past MAX_COUNTER_SAMPLES samples are counted, not kept."""
+    global _counters_dropped
+    if not _enabled:
+        return
+    ts_us = (time.perf_counter() - _t_origin) * 1e6
+    with _lock:
+        if len(_counters) < MAX_COUNTER_SAMPLES:
+            _counters.append((name, ts_us, float(value)))
+        else:
+            _counters_dropped += 1
+
+
+def counter_samples() -> List[tuple]:
+    """Recorded (name, ts_us, value) counter samples, oldest first."""
+    with _lock:
+        return list(_counters)
 
 
 def dropped_spans() -> int:

@@ -13,8 +13,17 @@ Port of ``paddle_tpu/ops/flash_attention.py``. Layout [B, S, H, D].
   (which say what each replaces and what bounds it). A wrapper takes the
   plain version only for a tensor on the CPU; for a CUDA tensor it
   launches its kernel or raises. ``<wrapper>.launches`` counts launches.
-- ``FlashAttentionFunction``: the autograd Function (ref ``:451-536``); it
-  saves ``(q, k, v, o, lse)`` and nothing of size S x S.
+- ``paddle_tpu_torch::flash_fwd`` (``flash_fwd_op``): K1 as a
+  ``torch.library`` custom op. Its implementation is the ``flash_fwd``
+  wrapper, its fake rule gives the shapes, so ``torch.export`` traces a
+  call to K1 into the graph it saves.
+- ``FlashAttentionFunction``: the autograd Function (ref ``:451-536``);
+  its forward calls the custom op, it saves ``(q, k, v, o, lse)`` and
+  nothing of size S x S, and its backward runs K2 then K3. Training,
+  evaluation and an export all take it (an export with no input that
+  needs a gradient traces through it to the op alone). A Function costs
+  less host time a call than the op's own ``register_autograd``
+  (PERF.md).
 - ``flash_attention``: the bias-free route to K1-K3. K1-K3 take fp32,
   bf16 or fp16, head dim 64 or 128, contiguous and 16-byte aligned; a
   smaller head dim is zero-padded to the next of those (the Pallas
@@ -34,7 +43,7 @@ TF32), and round only their outputs (and K1 its bf16 or fp16 P).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -237,13 +246,39 @@ flash_bwd_dkv.launches = 0
 WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 
 
+def _aligned(t):
+    """``t``, or a copy where it is not 16-byte aligned (memory from
+    another framework, a view past its storage's start): K1-K3 copy rows
+    16 bytes at a time."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: float, block_size: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as the dispatcher sees it: the ``flash_fwd`` wrapper (K1 on a
+    CUDA tensor, its plain version on a CPU one, and the same
+    ``flash_fwd.launches``) on aligned copies of what is not. The name
+    is looked up at each call, so a stand-in set on this module's
+    ``flash_fwd`` is what runs."""
+    return flash_fwd(*(_aligned(t) for t in (q, k, v)), causal, scale,
+                     block_size)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, block_size):
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash-style autograd: the forward saves only (q, k, v, o, lse); the
     backward recomputes P block by block (K2 then K3 on the card)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, block_size):
-        o, lse = flash_fwd(q, k, v, causal, scale, block_size)
+        o, lse = flash_fwd_op(q, k, v, causal, scale, block_size)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.attrs = (causal, scale, block_size)
         return o
@@ -251,7 +286,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        g = g.contiguous()
+        q, k, v, g = (_aligned(t) for t in (q, k, v, g.contiguous()))
         dq, delta = flash_bwd_dq(q, k, v, o, g, lse, *ctx.attrs)
         dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, *ctx.attrs)
         return dq, dk, dv, None, None, None
@@ -280,12 +315,12 @@ def _kernel_head_dim(d: int) -> int:
 
 def _kernel_layout(t, dp: int):
     """``t`` as K1-K3 read it: head dim zero-padded to ``dp``, contiguous
-    and 16-byte aligned (a copy only where it is not)."""
+    (a copy only where it is not). ``flash_fwd_op`` copies what is not
+    16-byte aligned, where a data pointer exists."""
     d = t.shape[-1]
     if d != dp:
         return torch.nn.functional.pad(t, (0, dp - d))
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
+    return t.contiguous()
 
 
 def flash_attention(q, k, v, causal: bool = False,

@@ -15,8 +15,10 @@ Port of ``paddle_tpu/serving/``, the server built on
 - :mod:`.placement`: the one-device ``ServingMesh``;
 - :mod:`.server`: :class:`PredictorServer` tying it together.
 
-Load path A only (``save_inference_model`` directories); path B, a
-serialized ``jax.export`` artifact, raises (ROADMAP Queue 1 item 7).
+Both load paths: A, a ``save_inference_model`` directory; B, a
+``torch.export`` archive that ``inference.export_stablehlo`` wrote (the
+port's twin of the reference's serialized ``jax.export`` blob, which
+the port refuses).
 """
 from __future__ import annotations
 

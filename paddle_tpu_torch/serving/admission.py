@@ -2,7 +2,7 @@
 
 A copy of ``paddle_tpu/serving/admission.py`` (pure Python), less
 ``PlacementError`` / ``reject_placement`` (the PTA4xx placement pass is
-not ported) and ``admit_opaque`` (load path B raises in the port).
+not ported).
 
 The reference's AnalysisPredictor runs its IR pass pipeline at
 ``Init`` time — a model that cannot be optimized/validated never
@@ -88,3 +88,11 @@ def admit_program(program: Program, feed_names: Iterable[str],
     _metrics.counter_add("serving/admission_ok")
     return report
 
+
+
+def admit_opaque(label: str) -> AdmissionReport:
+    """Admission record for artifacts without Program IR (load path B's
+    ``torch.export`` archives): the export traced the program, and the
+    archive's module checks its input shapes at each call."""
+    _metrics.counter_add("serving/admission_ok")
+    return AdmissionReport(label, [], checked=False)

@@ -1,13 +1,19 @@
 """ServedModel: one admitted model and its per-bucket executables.
 
-Port of ``paddle_tpu/serving/model.py``, load path A: a
+Port of ``paddle_tpu/serving/model.py``. Load path A: a
 ``save_inference_model`` directory is loaded into a private scope on
 :func:`paddle_tpu_torch.device.get_device`, the static analyzer gates
 admission (:mod:`.admission`), and the program is closed over its
 parameters as a feed->fetch function (``inference._pure_fn``), the
-executable every bucket runs. Load path B, a serialized ``jax.export``
-artifact, raises: its twin is a ``torch.export`` artifact, which waits
-for ``export_stablehlo``'s port (ROADMAP Queue 1 item 7).
+executable every bucket runs. Load path B: a file is a ``torch.export``
+archive (``inference.export_stablehlo``'s ``.pt2``, where the reference
+loads a serialized ``jax.export`` blob), run on the device it was
+exported on. Its fingerprint is the file's sha256, the shapes it was
+exported at are its one bucket (a different declared bucket is refused
+at load), its sidecar's batch-major flags are taken where they match
+its outputs (else an output whose leading dim is that bucket's batch
+is batch-major), and admission is opaque. Any other file, such as a JAX
+package's ``.jaxexport`` blob, is refused.
 
 A bucket's first preparation is the two-batch shape probe that decides
 which fetches are sliced per request (:meth:`ServedModel.out_slicing`,
@@ -30,7 +36,9 @@ it with an event, which the scheduler's readback thread waits on.
 from __future__ import annotations
 
 import hashlib
+import json
 import os
+import zipfile
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -153,15 +161,13 @@ class ServedModel:
         # of declared buckets / server.freeze() for learned ones)
         self.steady_armed = False
         self._params_digest = None
-        enforce(os.path.isdir(path),
-                f"model {self.label!r}: {path!r} is not a "
-                f"save_inference_model directory; serialized jax.export "
-                f"artifacts (the reference's load path B) are not served "
-                f"by the port: their twin, a torch.export artifact, waits "
-                f"for export_stablehlo's port (ROADMAP Queue 1 item 7)",
-                InvalidArgumentError)
-        self._load_program_dir(path, admission_check)
-        if auto_buckets:
+        self._exported = None           # load path B's ExportedProgram
+        if os.path.isdir(path):
+            self._load_program_dir(path, admission_check)
+        else:
+            self._load_exported(path, admission_check)
+        if auto_buckets and self._exported is None:
+            # an exported archive has one intrinsic bucket
             self._apply_auto_buckets()
 
     def _apply_auto_buckets(self):
@@ -212,6 +218,70 @@ class ServedModel:
         self._meta = _meta_fn(prog, self.feed_names, self.fetch_names,
                               params)
 
+    def _load_exported(self, path: str, admission_check: bool):
+        """Load path B: a ``torch.export`` archive (see the module
+        docstring)."""
+        from ..inference import _exported_call, _exported_signature
+        enforce(zipfile.is_zipfile(path),
+                f"model {self.label!r}: {path!r} is neither a "
+                f"save_inference_model directory nor a torch.export "
+                f"archive, which load path B takes (export_stablehlo "
+                f"writes one; a jax.export blob is not one)",
+                InvalidArgumentError)
+        digest = hashlib.sha256()
+        with open(path, "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 20), b""):
+                digest.update(chunk)
+        self.fingerprint = digest.hexdigest()
+        self._exported = torch.export.load(path)
+        ins, outs = _exported_signature(self._exported)
+        self.device = ins[0].device
+        self._params = {}
+        self._params_digest = ""        # the fingerprint hashes the weights
+        meta = {}
+        try:
+            with open(path + ".meta.json", "r", encoding="utf-8") as f:
+                meta = json.load(f)
+        except (OSError, ValueError):
+            pass
+        self.feed_names = list(meta.get("feed_names")
+                               or [f"arg{i}" for i in range(len(ins))])
+        self.fetch_names = list(meta.get("fetch_names")
+                                or [f"out{i}" for i in range(len(outs))])
+        # the export fixed the shapes: its inputs are the ONE bucket
+        intrinsic = BucketPolicy(declared=[{
+            n: (tuple(int(d) for d in t.shape), dtypes.dtype_name(t.dtype))
+            for n, t in zip(self.feed_names, ins)}])
+        declared = self.policy.buckets
+        enforce(not declared or
+                {b.key for b in declared} == {intrinsic.buckets[0].key},
+                f"model {self.label!r}: a torch.export archive serves only "
+                f"its intrinsic bucket {intrinsic.buckets[0].key}; the "
+                f"declared buckets {[b.key for b in declared]} don't "
+                f"match; omit buckets= for exported archives",
+                InvalidArgumentError)
+        self.policy = intrinsic
+        # the flags export_stablehlo decided where the program was still
+        # traceable at two batch sizes, taken only where they match the
+        # archive's outputs; else (no sidecar, or a foreign one) an
+        # output whose leading dim is the bucket's batch is batch-major,
+        # as the reference's scheduler decides it
+        flags = meta.get("out_batch_major")
+        key = intrinsic.buckets[0].key
+        if (isinstance(flags, list) and len(flags) == len(self.fetch_names)
+                and len(flags) == len(outs)):
+            self._slicing[key] = tuple(bool(f) for f in flags)
+        else:
+            batch = intrinsic.buckets[0].batch
+            self._slicing[key] = tuple(bool(o.ndim and o.shape[0] == batch)
+                                       for o in outs)
+        self.admission = (_admission.admit_opaque(self.label)
+                          if admission_check else
+                          _admission.AdmissionReport(self.label, [],
+                                                     checked=False))
+        self._exec[intrinsic.buckets[0].key] = _exported_call(
+            self._exported)
+
     @property
     def params_digest(self) -> str:
         """Hash of the param values (part of the cache key). Lazy: it
@@ -233,6 +303,10 @@ class ServedModel:
             fn = self._exec.get(bucket.key)
             if fn is not None:
                 return fn
+            enforce(self._exported is None,
+                    f"model {self.label!r}: an exported archive serves "
+                    f"only its intrinsic bucket, not {bucket.key}",
+                    InvalidArgumentError)
             # a directory-less cache never hits or stores: skip the key
             # (and with it the params digest's device-to-host pass)
             key = (cache_key(self.fingerprint, bucket.key,

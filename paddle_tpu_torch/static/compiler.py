@@ -93,9 +93,10 @@ class CompiledProgram:
 
     def _with_inference_optimize(self, config) -> "CompiledProgram":
         """ref: compiler.py:199: mark the program as an inference target
-        driven by positional C-API feeds (run with a list feed raises
-        until ``inference/capi.py`` is ported, ROADMAP Queue 1 item 7);
-        the config is kept for introspection."""
+        driven by positional C-API feeds (``Executor.run`` with a list of
+        ``inference.capi.PaddleTensor``s in the feed-target order gives
+        the fetch targets as ``PaddleTensor``s); the config is kept for
+        introspection."""
         self._is_inference = True
         self._infer_config = config
         return self

@@ -422,8 +422,9 @@ def ernie_program(api, cfg, seq=None, dropout=None, amp=True, optimize=True):
     loss their sum, minimized by ``Adam(cfg["lr"])``, wrapped by
     ``static_amp.decorate`` (bf16, dynamic loss scaling) when ``amp``;
     with ``optimize`` False, the forward alone. Parameter names are
-    ERNIE's. Returns a namespace of the programs,
-    the loss, the two head losses and the optimizer."""
+    ERNIE's. Returns a namespace of the programs, the loss, the two head
+    losses, the next-sentence logits (``nsp_logits``, what a served
+    export fetches) and the optimizer."""
     seq = seq or cfg["seq"]
     p = cfg["dropout"] if dropout is None else dropout
     st, nn = api.static, api.static.nn
@@ -508,7 +509,8 @@ def ernie_program(api, cfg, seq=None, dropout=None, amp=True, optimize=True):
         if optimize:
             opt.minimize(loss)
     return types.SimpleNamespace(main=main, startup=startup, loss=loss.name,
-                                 mlm=mlm.name, nsp=nsp.name, opt=opt)
+                                 mlm=mlm.name, nsp=nsp.name,
+                                 nsp_logits=nsp_logits.name, opt=opt)
 
 
 def ernie_batch(cfg, batch=None, seq=None, seed=0):

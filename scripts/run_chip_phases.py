@@ -15,8 +15,11 @@ one O1 step under the profiler: launches, host syncs, device busy),
 (then K1-K3 at its shape, ``phase_ernie_kernels``), ``dy2static_nmt``
 (then K1-K3 at its shape, ``phase_nmt_kernels``), ``static_decoders``,
 ``proto_model`` (after ``phase_predictor``, which saves the artifacts it
-reads, under ``build/serving``), ``resnet_loader``, ``ctr_dataset`` and
-``fp16`` (phase timing at fp16). To
+reads, under ``build/serving``), ``resnet_loader``, ``ctr_dataset``,
+``hapi_ernie``, ``export_serve`` (then K1-K3 at the fine-tune's shape
+and K1 at the served one, ``phase_hapi_kernels``), ``dispatch`` (K1's
+host time a call on each route, ``phase_dispatch``) and ``fp16`` (phase
+timing at fp16). To
 compare two commits on one card, run them in turns in one call, one
 process each, e.g. parent, change, change, parent.
 """
@@ -123,6 +126,14 @@ def main():
             cs.phase_resnet_loader(tpt, dev)
         elif ph == "ctr_dataset":
             cs.phase_ctr_dataset(tpt, dev)
+        elif ph == "hapi_ernie":
+            cs.phase_hapi_ernie(tpt, fa, dev)
+        elif ph == "export_serve":
+            os.makedirs("build/serving", exist_ok=True)
+            cs.phase_export_serve(tpt, fa, dev, "build/serving")
+            cs.phase_hapi_kernels(fa, dev)
+        elif ph == "dispatch":
+            cs.phase_dispatch(fa, dev)
         elif ph == "fp16":
             cs.phase_timing(fa, dev, torch.float16)
         else:

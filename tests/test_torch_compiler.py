@@ -8,8 +8,11 @@ softmax_with_cross_entropy, mean, SGD) give the plain Program run's bits
 on the port, step for step, and the JAX package's losses and parameters
 on one device within fp32 rounding (rtol 1e-5 / atol 1e-6 for the
 losses, 1e-5 of the update's norm for the parameters). Two places
-raise ``UnimplementedError`` naming ROADMAP item 8; an inference
-CompiledProgram fed a positional list raises naming item 7.
+raise ``UnimplementedError`` naming ROADMAP item 8. An inference
+CompiledProgram fed a positional list (the C-API run, ROADMAP item 7)
+needs the feed-target order that ``load_inference_model`` records: on a
+program built in place both packages raise ``InvalidArgumentError``
+(``tests/test_torch_export.py`` runs it on a loaded model).
 """
 import types
 
@@ -23,7 +26,10 @@ from paddle_tpu.optimizer import SGD as JaxSGD
 
 import paddle_tpu_torch as tpt
 import paddle_tpu_torch.static as pstatic
-from paddle_tpu_torch.core.enforce import UnimplementedError
+from paddle_tpu.core.enforce import \
+    InvalidArgumentError as JaxInvalidArgumentError
+from paddle_tpu_torch.core.enforce import (InvalidArgumentError,
+                                           UnimplementedError)
 from paddle_tpu_torch.optimizer import SGD as PortSGD
 from test_torch_static_builders import _cpu, startup_scopes  # noqa: F401
 
@@ -128,8 +134,12 @@ def test_two_places_raise_naming_item_8():
 
 
 def test_inference_compiled_program_positional_feed_names_item_7():
-    pmain, pstart, ploss = _program(PORT)
-    compiled = pstatic.CompiledProgram(pmain)._with_inference_optimize(None)
-    assert compiled._is_inference
-    with pytest.raises(UnimplementedError, match="item 7"):
-        tpt.Executor().run(compiled, feed=[np.zeros((1, 6), np.float32)])
+    feed = [np.zeros((1, 6), np.float32)]
+    for api, exc in ((JAX, JaxInvalidArgumentError),
+                     (PORT, InvalidArgumentError)):
+        main, _, _ = _program(api)
+        compiled = api.static.CompiledProgram(main)._with_inference_optimize(
+            None)
+        assert compiled._is_inference
+        with pytest.raises(exc, match="feed target order unknown"):
+            api.pt.Executor().run(compiled, feed=feed)

@@ -143,3 +143,29 @@ def test_op_hands_the_kernels_what_they_take(monkeypatch, d, dtype):
     assert tfa._kernel_head_dim(d) == (64 if d <= 64 else 128)
     if d in tfa.KERNEL_HEAD_DIMS:      # no copy of what they take as it is
         assert tfa._kernel_layout(x, d) is x
+
+
+def test_op_aligns_a_storage_that_starts_unaligned(monkeypatch):
+    """Memory from another framework may start 4 bytes past 16-byte
+    alignment with no storage offset: K1 still gets an aligned copy, and
+    the same output."""
+    seen = []
+    real = tfa.flash_fwd
+
+    def spy(q, k, v, *args):
+        seen.append(tfa._refusal(q, k, v))
+        return real(q, k, v, *args)
+    monkeypatch.setattr(tfa, "flash_fwd", spy)
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, 16, 2, 64)
+                         .astype(np.float32))
+    buf = np.zeros(x.numel() + 4, np.float32)
+    off = (-buf.ctypes.data % 16 + 4) // 4
+    q = torch.from_numpy(buf[off:off + x.numel()]).view(x.shape)
+    q.copy_(x)
+    assert q.storage_offset() == 0 and q.data_ptr() % 16 == 4
+    got = tfa._flash_attention_op({"Q": [q], "K": [x], "V": [x]},
+                                  {})["Out"][0]
+    want = tfa._flash_attention_op({"Q": [x], "K": [x], "V": [x]},
+                                   {})["Out"][0]
+    assert seen == [None, None]
+    assert torch.equal(got, want)

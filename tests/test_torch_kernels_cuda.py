@@ -397,3 +397,44 @@ def test_native_feeder_builds_into_build_and_feeds_the_card(cuda, tmp_path):
     want = [sum(i + 0.5 - i for i in range(lo, min(lo + 4, 10)))
             for lo in (0, 4, 8)]
     np.testing.assert_allclose(hist[total.name], want, rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_exported_ernie_launches_k1(cuda, tmp_path):
+    """chip_smoke phase export_serve at ERNIE_TINY: the forward saved by
+    save_inference_model, exported on the card by
+    inference.export_stablehlo into a torch.export archive and loaded by
+    load_exported: a call launches K1 once a layer (the archive's graph
+    calls the paddle_tpu_torch::flash_fwd custom op), nothing takes the
+    blockwise route, and the outputs equal Predictor's run of the
+    directory within 1e-5 relative."""
+    import numpy as np
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch import inference, io
+    from paddle_tpu_torch.testing import static_cases as sc
+    cfg = sc.ERNIE_TINY
+    tpt.set_device("cuda")
+    built = sc.ernie_program(sc.port_api(), cfg, dropout=0, amp=False,
+                             optimize=False)
+    exe, scope = tpt.Executor(), tpt.Scope()
+    exe.run(built.startup, scope=scope)
+    feeds = ["src_ids", "pos_ids", "sent_ids"]
+    path = str(tmp_path / "ernie")
+    with tpt.scope_guard(scope):
+        io.save_inference_model(
+            path, feeds, [built.main.global_block().var(built.nsp_logits)],
+            exe, main_program=built.main, scope=scope)
+    feed = chip_smoke.ernie_serve_feeds(cfg, 2, cfg["seq"], 0)
+    pt2 = str(tmp_path / "ernie.pt2")
+    inference.export_stablehlo(path, {n: (2, cfg["seq"]) for n in feeds},
+                               pt2, {n: "int64" for n in feeds})
+    call = inference.load_exported(pt2)
+    launches, calls = fa.flash_fwd.launches, fa.blockwise_route.calls
+    got = call(*[torch.from_numpy(feed[n]).to(cuda) for n in feeds])
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches - launches == cfg["layers"]
+    assert fa.blockwise_route.calls == calls
+    want, = inference.create_predictor(inference.Config(path)).run(
+        [feed[n] for n in feeds])
+    np.testing.assert_allclose(got[0].cpu().numpy(), want, rtol=1e-5,
+                               atol=1e-7)

@@ -3,8 +3,10 @@
 ``static.contrib_layers``, ``static.nest_utils``, ``static.analysis``,
 ``inference.proto_program``, ``jit.dy2static``, ``io``,
 ``io.dataloader``, ``dataset``, ``trainer``, ``incubate.data_generator``,
-``vision.transforms``, ``vision.datasets``, ``vision.image_utils`` and
-``text.datasets`` exists in the port's module of the same name (F5:
+``vision.transforms``, ``vision.datasets``, ``vision.image_utils``,
+``text.datasets``, ``metric``, ``average``, ``hapi``, ``hapi.callbacks``,
+``inference``, ``inference.capi`` and ``observability.step_timer``
+exists in the port's module of the same name (F5:
 ``dygraph.VarBase`` was missing), less the names a named ROADMAP Queue 1
 item still defers, which raise naming it or are absent until it lands,
 and less the JAX tape's internals, which have no twin. ``io.download``
@@ -39,6 +41,9 @@ NO_TWIN_MODULES = ("io.download",)
 DEFERRED = {
     "static.nn": {"get_tensor_from_selected_rows": "item 8",
                   "merge_selected_rows": "item 8"},
+    # the PJRT C client's artifacts (ROADMAP Queue 1 item 7b)
+    "inference": {"export_pjrt_artifact": "item 7b",
+                  "export_pjrt_train_artifact": "item 7b"},
 }
 
 # (reference module, port module): static.nn is a namespace class
@@ -56,7 +61,11 @@ MODULES = {"dygraph": "dygraph", "nn": "nn", "static": "static",
            "vision.transforms": "vision.transforms",
            "vision.datasets": "vision.datasets",
            "vision.image_utils": "vision.image_utils",
-           "text.datasets": "text.datasets"}
+           "text.datasets": "text.datasets", "metric": "metric",
+           "average": "average", "hapi": "hapi",
+           "hapi.callbacks": "hapi.callbacks", "inference": "inference",
+           "inference.capi": "inference.capi",
+           "observability.step_timer": "observability.step_timer"}
 
 
 def _module(package, name):

@@ -352,6 +352,7 @@ import collections
 import contextlib
 import ctypes
 import functools
+import itertools
 import json
 import math
 import re
@@ -408,11 +409,20 @@ REPLACES = {"flash_fwd": "paddle_tpu/ops/flash_attention.py:217",
 KERNEL_FN = {"flash_fwd": "flash_fwd_kernel",       # wrapper -> CUDA kernel
              "flash_bwd_dq": "flash_bwd_dq_kernel",
              "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+# K2 and K3 on bf16 and fp16 inputs: the wgmma kernels
+KERNEL_FN_16BIT = {"flash_bwd_dq": "flash_bwd_dq_wgmma",
+                   "flash_bwd_dkv": "flash_bwd_dkv_wgmma"}
 PAIR = "flash_bwd_dq+flash_bwd_dkv"          # what SDPA's backward covers
-# TF32 passes a kernel runs on bf16 inputs, over its products
-# (flash_attention.cu:21-40): K1 S and P.V one each; K2 S and dP one, dQ
-# (A = dS, fp32) two; K3 S^T and dP^T one, dV and dK (A = P^T, dS^T) two
-TF32_PASSES_BF16 = {"flash_fwd": 2, "flash_bwd_dq": 4, "flash_bwd_dkv": 6}
+# TF32 passes K1 runs on bf16 inputs, over its products
+# (flash_attention.cu:25-41): S and P.V one each
+TF32_PASSES_BF16 = {"flash_fwd": 2}
+
+
+def kernel_fn(wrapper, dname):
+    """The CUDA kernel a wrapper launches on "f32", "bf16" or "f16"."""
+    if dname != "f32" and wrapper in KERNEL_FN_16BIT:
+        return KERNEL_FN_16BIT[wrapper]
+    return KERNEL_FN[wrapper]
 
 
 class CheckFailed(RuntimeError):
@@ -505,16 +515,16 @@ def card_line():
 
 
 _INSTANCE = re.compile(
-    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16|6__half)"
-    r"Li(\d+)E")
+    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:kernel|wgmma))"
+    r"I(f|13__nv_bfloat16|6__half)Li(\d+)E")
 # mangled template argument -> name, in the order of the dtype codes
 # flash_attention.cu dispatches on (0, 1, 2)
 _DTYPE_NAME = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
 def hmma_counts(path):
-    """(tensor-core HMMA instructions, all instructions) in each kernel's
-    SASS, by (kernel, "f32" | "bf16" | "f16", D), from cuobjdump
+    """[mma.sync HMMA, wgmma HGMMA, TF32 HMMA, all instructions] in each
+    kernel's SASS, by (kernel, "f32" | "bf16" | "f16", D), from cuobjdump
     --dump-sass."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(path)],
@@ -527,10 +537,13 @@ def hmma_counts(path):
             key = m and (m.group(1), _DTYPE_NAME[m.group(2)],
                          int(m.group(3)))
             if key:
-                counts[key] = [0, 0]
+                counts[key] = [0, 0, 0, 0]
         elif key and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
-            counts[key][1] += 1
-            counts[key][0] += "HMMA" in line
+            c = counts[key]
+            c[3] += 1
+            c[0] += " HMMA." in line
+            c[1] += " HGMMA." in line
+            c[2] += " HMMA." in line and ".TF32" in line
     return counts
 
 
@@ -557,15 +570,25 @@ def phase_build(kernels):
                 print(f"[build]   {line.strip()}")
     counts = hmma_counts(kernels._target("flash_attention"))
     for key in sorted(counts):
-        hmma, total = counts[key]
-        print(f"[build] {key[0]} {key[1]} D{key[2]}: {hmma} HMMA "
-              f"(tensor-core) instructions of {total} in its SASS")
-    for fn in KERNEL_FN.values():
+        hmma, hgmma, tf32, total = counts[key]
+        print(f"[build] {key[0]} {key[1]} D{key[2]}: {hmma} HMMA ({tf32} "
+              f"TF32) and {hgmma} HGMMA tensor-core instructions of {total} "
+              f"in its SASS")
+    for wrapper in KERNEL_FN:
         for dname in _DTYPE_NAME.values():
             for d in (64, 128):
-                key = (fn, dname, d)
-                check(counts.get(key, [0])[0] > 0,
-                      f"{key}: no HMMA in its SASS")
+                key = (kernel_fn(wrapper, dname), dname, d)
+                hmma, hgmma, tf32, _ = counts.get(key, [0, 0, 0, 0])
+                if key[0] in KERNEL_FN_16BIT.values():
+                    check(hgmma > 0 and tf32 == 0,
+                          f"{key}: {hgmma} HGMMA and {tf32} TF32 HMMA in its "
+                          f"SASS (wants wgmma and no TF32)")
+                else:
+                    check(hmma > 0, f"{key}: no HMMA in its SASS")
+    # no 16-bit K2 or K3 instance of any name runs TF32 products
+    for (fn, dname, d), (_, _, tf32, _) in counts.items():
+        check(dname == "f32" or "bwd" not in fn or tf32 == 0,
+              f"{(fn, dname, d)}: {tf32} TF32 HMMA on 16-bit inputs")
     lib = kernels.library("flash_attention")
     b, s, h, d, _ = BERT_SHAPE
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -573,7 +596,7 @@ def phase_build(kernels):
         for dtype_code, dname in enumerate(_DTYPE_NAME.values()):
             blocks, threads, smem, rows = occupancy(lib, which, dtype_code, d)
             grid = b * h * -(-s // rows)
-            print(f"[build] {KERNEL_FN[wrapper]} {dname} D{d}: {blocks} "
+            print(f"[build] {kernel_fn(wrapper, dname)} {dname} D{d}: {blocks} "
                   f"blocks/SM ({threads} threads, {smem} B shared); BERT-base "
                   f"grid {grid} blocks on {sms} SMs = "
                   f"{grid / (blocks * sms):.3f} waves")
@@ -635,11 +658,14 @@ def phase_kernels(fa, dev):
 
 def phase_determinism(fa, dev):
     """No atomics in K1-K3: two launches on the same inputs give the same
-    bits."""
-    for (b, sq, sk, h, d, causal) in (CASES[0], (2, 130, 60, 3, 64, True)):
+    bits, in fp32 (the 3xTF32 kernels) and bf16 and fp16 (K2 and K3 on
+    wgmma)."""
+    for (b, sq, sk, h, d, causal), dtype in itertools.product(
+            (CASES[0], (2, 130, 60, 3, 64, True), (1, 130, 60, 2, 128, True)),
+            CHECKED):
         gen = torch.Generator(device=dev).manual_seed(5)
         q, k, v, g = (torch.randn(b, n, h, d, generator=gen, device=dev)
-                      for n in (sq, sk, sk, sq))
+                      .to(dtype) for n in (sq, sk, sk, sq))
         scale = 1.0 / math.sqrt(d)
         fwd = [fa.flash_fwd(q, k, v, causal, scale) for _ in range(2)]
         o, lse = fwd[0]
@@ -651,8 +677,8 @@ def phase_determinism(fa, dev):
         torch.cuda.synchronize()
         same = {"K1": all(torch.equal(x, y) for x, y in zip(*fwd)),
                 "K2/K3": all(torch.equal(x, y) for x, y in zip(*runs))}
-        print(f"[determinism] B{b} Sq{sq} Sk{sk} causal={causal}: two "
-              f"launches of " + ", ".join(
+        print(f"[determinism] B{b} Sq{sq} Sk{sk} D{d} causal={causal} "
+              f"{str(dtype)[6:]}: two launches of " + ", ".join(
                   f"{n} {'bitwise equal' if ok else 'DIFFER'}"
                   for n, ok in same.items()))
         check(all(same.values()), f"not bitwise deterministic: {same}")
@@ -725,10 +751,11 @@ def phase_fp64(fa, dev):
 
 
 def bound_tf32_passes(kernel, b, s, h, d, causal=False):
-    """K1-K3's own bound on bf16 inputs: bytes at 2 an element against
-    the TF32 passes they run on them (flash_attention.cu:21-40: a product
-    of two staged bf16 tiles is exact in TF32 and takes one pass, one
-    whose A is the fp32 P or dS takes two, and K1 rounds P to bf16)."""
+    """K1's own bound on bf16 inputs: bytes at 2 an element against the
+    TF32 passes it runs on them (flash_attention.cu:25-41: its two
+    products of bf16 values are exact in TF32 and take one pass each).
+    K2 and K3 run bf16 and fp16 on wgmma at the 16-bit rate: their own
+    bound is ``bound``'s."""
     t_bytes, _ = bound(kernel, b, s, h, d, torch.bfloat16,
                        {torch.bfloat16: math.inf})
     t_ops = (TF32_PASSES_BF16[kernel] * 2 * b * h * causal_pairs(s, causal)
@@ -793,19 +820,24 @@ def phase_timing(fa, dev, dtype, shape=BERT_SHAPE, n=20):
             units = f"tensor cores, {dname} rate"
             bound_ms, bound_by = bound(name, b, s, h, d, dtype,
                                        causal=causal)
-            # the TF32 passes the kernels run on bf16 inputs
-            yard = "bound_tf32_passes"
-            y_ms, y_by = bound_tf32_passes(name, b, s, h, d, causal)
+            # K1: the TF32 passes it runs on bf16 inputs; K2 and K3 run
+            # wgmma at the 16-bit rate, and have no second yardstick
+            yard = "bound_tf32_passes" if name in TF32_PASSES_BF16 else None
+            if yard:
+                y_ms, y_by = bound_tf32_passes(name, b, s, h, d, causal)
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": lib_ms,
-                      "dtype": dname, "shape": shape_of, "bound_units": units,
-                      yard + "_ms": y_ms, yard + "_by": y_by}
+                      "dtype": dname, "shape": shape_of, "bound_units": units}
+        if yard:
+            rows[name].update({yard + "_ms": y_ms, yard + "_by": y_by})
         if name != "flash_fwd":
             rows[name]["library_covers"] = PAIR
         print(f"[time] {shape_of} {dname} {name:<14} {ms:.4f} ms  bound "
               f"{bound_ms:.4f} ms ({bound_by}, {units}; "
-              f"{bound_ms / ms:.1%})  {yard} {y_ms:.4f} ms ({y_by}; "
-              f"{y_ms / ms:.1%})  plain {plain_ms:.4f} ms  library "
+              f"{bound_ms / ms:.1%})  "
+              + (f"{yard} {y_ms:.4f} ms ({y_by}; {y_ms / ms:.1%})  "
+                 if yard else "")
+              + f"plain {plain_ms:.4f} ms  library "
               f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     print(f"[time] {shape_of} {dname} K2 + K3 pair {pair_ms:.4f} ms "
           f"against SDPA backward (dq, dk, dv in one call) "
@@ -1583,6 +1615,9 @@ def kernel_op(event):
     return None
 
 
+_FLASH_KERNEL = re.compile(r"flash_(?:fwd|bwd_dq|bwd_dkv)_(?:kernel|wgmma)")
+
+
 def profile_call(fn):
     """torch.profiler over one call of fn (ops ranged): its device busy
     time, wall time, device time by launching op, kernels run, CUDA
@@ -1616,11 +1651,16 @@ def profile_call(fn):
         e.time_range.end - e.time_range.start for e in dev_events) - sum(
         by_op.values())
     by_kernel = collections.Counter()
+    flash = collections.Counter()           # K1-K3 by CUDA kernel name
     for e in dev_events:
         by_kernel[e.name] += e.time_range.end - e.time_range.start
+        m = _FLASH_KERNEL.search(e.name)
+        if m:
+            flash[m.group(0)] += e.time_range.end - e.time_range.start
     return dict(busy_ms=device_busy_us(dev_events) / 1e3, wall_ms=wall_ms,
                 top_kernels=[(k, v / 1e3) for k, v in
                              by_kernel.most_common(5)],
+                flash_ms={k: v / 1e3 for k, v in flash.items()},
                 by_op_ms={k: v / 1e3 for k, v in by_op.items()},
                 device_events=len(dev_events), runtime=runtime,
                 launches=sum(n for name, n in runtime.items()
@@ -2042,6 +2082,10 @@ GPT_O0_UPDATE_TOL = 2.0 ** -5
 # losses (and the MoE aux losses) card against CPU at O0: fp32 sums in
 # other orders
 GPT_O0_LOSS_TOL = (1e-4, 1e-5)
+# the card's MoE aux losses against the CPU's moe_ffn on the same inputs
+# (the card's own): fp32 sums of the gates in other orders, which read
+# about 1e-7
+MOE_AUX_OP_TOL = (1e-6, 1e-6)
 # GPT-3 XL, "GPT-3 1.3B" (Brown et al. 2020, Table 2.1 and Appendix B):
 # lr 2e-4, linear warm-up over 375M tokens, cosine decay to 10% over
 # 260B tokens, Adam beta 0.9 / 0.95, eps 1e-8, weight decay 0.1, clip
@@ -2118,8 +2162,9 @@ def _gpt_tiny_run(tpt, fa, device, state, ids, kw, level, steps):
     """gpt_tiny from ``state`` through TrainStep at ``level``: AdamW at
     lr 1e-3 (O0), or at O2 with GPT-3's schedule shape (warm-up 2,
     cosine to 10% over 10) and the clip. Returns the losses, the MoE aux losses of each step,
-    the fp32 values after the steps (masters at O2) on the CPU, and the
-    flash routes taken."""
+    the fp32 values after the steps (masters at O2) on the CPU, the
+    flash routes taken, and the inputs of each step's MoE layers (on the
+    CPU)."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.convert import load_state_dict
     from paddle_tpu_torch.jit import TrainStep
@@ -2136,10 +2181,12 @@ def _gpt_tiny_run(tpt, fa, device, state, ids, kw, level, steps):
     step = TrainStep(model, gpt_step_fn, opt, amp_level=level)
     calls = fa.blockwise_route.calls
     launches = [w.launches for w in fa.WRAPPERS]
-    losses, auxes = [], []
-    with op_dtypes() as seen:
+    losses, auxes, moe_inputs = [], [], []
+    with op_dtypes() as seen, moe_recorder() as calls_in:
         for _ in range(steps):
+            calls_in.clear()
             losses.append(float(step(ids)))
+            moe_inputs.append(list(calls_in))
             auxes.append([float(a.detach())
                           for a in model.gpt.aux_losses()])
             if level == "O2":
@@ -2153,7 +2200,40 @@ def _gpt_tiny_run(tpt, fa, device, state, ids, kw, level, steps):
     else:
         final = {n: p.detach().cpu() for n, p in step._params.items()}
     return (losses, auxes, final, fa.blockwise_route.calls - calls,
-            [w.launches - n for w, n in zip(fa.WRAPPERS, launches)], seen)
+            [w.launches - n for w, n in zip(fa.WRAPPERS, launches)], seen,
+            moe_inputs)
+
+
+def same_moe_weights(moe_inputs, n):
+    """Whether step ``n``'s MoE layers (``moe_recorder``'s records) ran
+    with the first step's weights."""
+    return all(torch.equal(a[k][0], b[k][0])
+               for (a, _), (b, _) in zip(moe_inputs[n], moe_inputs[0])
+               for k in a if k != "X")
+
+
+@contextlib.contextmanager
+def moe_recorder():
+    """Records the inputs and attributes of every ``moe_ffn`` call that a
+    ``MoELayer`` makes, copied to the CPU, into the list it yields."""
+    from paddle_tpu_torch.distributed import moe
+    calls, forward = [], moe.MoELayer.forward
+
+    def recording(layer, x):
+        inputs = {"X": x, "GateW": layer.gate_weight, "W1": layer.w1,
+                  "B1": layer.b1, "W2": layer.w2, "B2": layer.b2}
+        calls.append(({k: [v.detach().cpu().clone()]
+                       for k, v in inputs.items()},
+                      {"top_k": layer.top_k,
+                       "capacity_factor": layer.capacity_factor,
+                       "activation": layer.activation,
+                       "norm_topk_prob": layer.norm_topk_prob}))
+        return forward(layer, x)
+    moe.MoELayer.forward = recording
+    try:
+        yield calls
+    finally:
+        moe.MoELayer.forward = forward
 
 
 def phase_gpt_tiny(tpt, fa, dev):
@@ -2162,6 +2242,7 @@ def phase_gpt_tiny(tpt, fa, dev):
     masters, schedule, clip, decay), dense and with moe=True,
     num_experts=4; then a cached decode on the card against its uncached
     forward."""
+    from paddle_tpu_torch.core.registry import OpInfoMap
     from paddle_tpu_torch.dygraph import no_grad
     from paddle_tpu_torch.text import gpt_tiny
     b, s, vocab = GPT_TINY["batch"], GPT_TINY["seq"], GPT_TINY["vocab"]
@@ -2179,7 +2260,7 @@ def phase_gpt_tiny(tpt, fa, dev):
                                 steps)
             card = _gpt_tiny_run(tpt, fa, dev, state, ids.to(dev), kw,
                                  level, steps)
-            losses, auxes, final, calls, launches, seen = card
+            losses, auxes, final, calls, launches, seen, moe_in = card
             dname = "bfloat16" if level == "O2" else "float32"
             print(f"[gpt_tiny] {name} {level}: losses card {losses} cpu "
                   f"{cpu[0]}; aux losses card {auxes} cpu {cpu[1]}; K1-K3 "
@@ -2193,8 +2274,26 @@ def phase_gpt_tiny(tpt, fa, dev):
             err_of(torch.tensor(losses), torch.tensor(cpu[0]), *tol, "loss")
             if kw:
                 check(all(len(a) == 2 for a in auxes), "no aux losses")
-                err_of(torch.tensor(auxes), torch.tensor(cpu[1]), *tol,
-                       "aux")
+                # each step's aux losses against the CPU's moe_ffn on the
+                # inputs the card's layers gave it
+                op = OpInfoMap.instance().get("moe_ffn")
+                own = [[float(op.compute(i, a)["AuxLoss"][0])
+                        for i, a in calls] for calls in moe_in]
+                err_of(torch.tensor(auxes), torch.tensor(own),
+                       *MOE_AUX_OP_TOL, "aux op")
+                # and against the CPU run's: at O0 every step, at O2 each
+                # step whose MoE weights are still the first step's in both
+                # runs. After an O2 update the router is not held to the
+                # CPU run (scripts/moe_aux_witness.py: attention's rounding
+                # alone moves a token's first choice there)
+                held = [n for n in range(steps) if level == "O0" or (
+                    same_moe_weights(moe_in, n) and
+                    same_moe_weights(cpu[6], n))]
+                print(f"[gpt_tiny] {name} {level}: aux against the CPU run "
+                      f"at steps {[n + 1 for n in held]} of {steps}")
+                check(held, "no step's aux held against the CPU run")
+                err_of(torch.tensor([auxes[n] for n in held]),
+                       torch.tensor([cpu[1][n] for n in held]), *tol, "aux")
             limit = O2_UPDATE_TOL if level == "O2" else GPT_O0_UPDATE_TOL
             # O2's masters start from the bf16-rounded weights
             base = {k: v.to(torch.bfloat16).float() if level == "O2"
@@ -2358,6 +2457,11 @@ def phase_gpt_o2(tpt, fa, dev, model):
     print(f"[gpt_o2] device ms by op: " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(prof["by_op_ms"].items(),
                                           key=lambda kv: -kv[1])[:12]))
+    flash_ms = sum(prof["flash_ms"].values())
+    print(f"[gpt_o2] K1-K3 in the profiled step: {flash_ms:.3f} ms of "
+          f"{prof['busy_ms']:.3f} busy ({flash_ms / prof['busy_ms']:.1%}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      sorted(prof["flash_ms"].items())))
     print(f"[gpt_o2] CUDA runtime calls: " + ", ".join(
         f"{k} {v}" for k, v in prof["runtime"].most_common(8)))
     print(f"[gpt_o2] launches over {n_steps} steps: {launches} (expected "
@@ -2454,7 +2558,7 @@ def phase_gpt_kernels(fa, dev):
     for which, wrapper in enumerate(REPLACES):
         blocks, threads, smem, rows = occupancy(lib, which, 1, d)
         grid = b * h * -(-s // rows)
-        print(f"[gpt_kernels] {KERNEL_FN[wrapper]} bf16 D{d}: {blocks} "
+        print(f"[gpt_kernels] {kernel_fn(wrapper, 'bf16')} bf16 D{d}: {blocks} "
               f"blocks/SM ({threads} threads, {smem} B shared); grid "
               f"{grid} blocks on {sms} SMs = {grid / (blocks * sms):.3f} "
               f"waves")

@@ -14,16 +14,18 @@
 // delta are [B, H, Sq] fp32: one value a row, not the TPU's 128-lane
 // replication (a Mosaic tiling rule, not part of the result).
 //
-// Every kernel: a block owns one (b*h, 64-row tile) and loops over the
+// Every kernel: a block owns one (b*h, row tile) and loops over the
 // other sequence inside the block. That loop replaces the TPU grid's
 // sequential last axis, whose sums were carried across grid steps in VMEM
-// scratch: CUDA blocks run in no order. Tiles are staged in dynamic shared
-// memory as fp32 (bf16 and fp16 inputs are widened on load); outputs round
-// once to the input type; accumulation is fp32 throughout. No atomics: K2 owns dQ
-// rows, K3 owns dK/dV rows, so results are bitwise deterministic.
+// scratch: CUDA blocks run in no order. Outputs round once to the input
+// type; accumulation is fp32 throughout. No atomics: K2 owns dQ rows, K3
+// owns dK/dV rows, so results are bitwise deterministic.
 //
-// All three kernels run every product on the tensor cores, with fp32
-// accuracy (wgmma and TMA are later work):
+// Two designs. K1 on every dtype, and K2 and K3 on fp32, are the 3xTF32
+// kernels below (flash_fwd_kernel, flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel): tiles staged in dynamic shared memory as fp32
+// (K1's bf16 and fp16 widened on load), every product on the tensor cores
+// with fp32 accuracy (K1's wgmma and TMA are later work):
 //   * mma.sync m16n8k8 TF32 in the 3xTF32 scheme (CUTLASS's
 //     OpMultiplyAddFastF32): each fp32 operand x splits in registers, when
 //     its fragment is loaded, into hi = tf32(x) (rounded to nearest by two
@@ -31,14 +33,13 @@
 //     hi*lo + hi*hi in fp32 (on an H100 at BERT-base, gradients within
 //     about 2e-6 relative of an fp64 reference, against 4e-7 for fp32
 //     FMAs and 5e-4 for plain TF32, hi*hi alone).
-//     bf16 and fp16 inputs are exact in TF32 (lo = 0: fp16's 10 mantissa
-//     bits are TF32's, and its exponent range lies inside TF32's): a
-//     product of two staged input tiles (S, dP) takes the hi*hi pass
-//     alone, and one whose A is the fp32 P or dS takes two (lo*hi,
-//     hi*hi); K1 rounds P to the input type before P*V, as the reference
-//     does, so both its products take one.
+//     K1's bf16 and fp16 inputs are exact in TF32 (lo = 0: fp16's 10
+//     mantissa bits are TF32's, and its exponent range lies inside
+//     TF32's), and K1 rounds P to the input type before P*V, as the
+//     reference does, so both its products take the hi*hi pass alone.
 //     mma.sync and not wgmma: wgmma takes TF32 only K-major, and P*V,
-//     dS*K, P^T*dO and dS^T*Q contract along the sequence.
+//     dS*K, P^T*dO and dS^T*Q contract along the sequence (16-bit
+//     operands have no such limit: K2 and K3 below).
 //   * A block is 4 warps; each warp owns 16 rows of the 64-row tile (q rows
 //     in K1 and K2, k rows in K3). K3 computes the transposed tiles
 //     S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T, the A operands of
@@ -88,11 +89,54 @@
 // third of their time (hi*hi alone runs them in 24-26 us against 35-41);
 // the rest is the instructions around each mma (scalar fragment loads,
 // softmax and mask arithmetic) and the barriers.
+//
+// K2 and K3 on bf16 and fp16 are flash_bwd_dq_wgmma and
+// flash_bwd_dkv_wgmma, redesigned for Hopper (they replaced the 3xTF32
+// kernels' 16-bit instances, which widened tiles to fp32 in 135,680 B at
+// D=128, ran one block of 4 warps an SM and took dS and P products in two
+// TF32 passes):
+//   * Tiles stay 16-bit in shared memory, in TMA's 128-byte swizzle, which
+//     is the layout wgmma reads: D / 64 panels of [rows][64]. The block's
+//     own tile (Q and dO in K2, K and V in K3) is 64 rows a consumer
+//     warpgroup; the streamed one (K and V; Q and dO with their lse and
+//     delta) comes in a ring of NST = 3 stages of 64 rows.
+//   * Every product is one wgmma at the 16-bit rate with an fp32
+//     accumulator, a warpgroup owning 64 rows: S = Q K^T, dP = dO V^T
+//     (K3: S^T = K Q^T, dP^T = V dO^T) read both operands K-major from
+//     shared memory (m64n64k16); dQ += dS K, dV += P^T dO and dK += dS^T Q
+//     take A from registers, the accumulator of S or dP rounded to the
+//     input type, and read B MN-major from the same swizzled tile
+//     (m64nDk16, transposed B).
+//   * Rounding as the reference: dS rounds to the input type before dQ +=
+//     dS K and dK += dS^T Q (paddle_tpu/ops/flash_attention.py:313-315,
+//     :350-352), P before dV += P^T dO (what the TPU's MXU does at default
+//     precision to the reference's fp32 product, :347-349).
+//   * One producer warp issues the TMA copies (tensor maps over the
+//     [B, S, H, D] strides, rows past S read as zeros) and the lse and
+//     delta rows, completing on mbarriers; consumers release a stage with
+//     one arrival a warp. The consumers hold dK and dV (64 x D fp32 each)
+//     with S and dP: at D=128 two consumer warpgroups and one block an SM
+//     (168 registers a thread; K3 spills 292 bytes), at D=64 one, and
+//     three blocks an SM of K2, two of K3.
+//   * Causal: fully masked stages are skipped a warpgroup at a time, and
+//     the grid launches the heaviest tiles first (late q tiles in K2,
+//     early k tiles in K3), which shortens the last wave.
+// What bounds them (chip_smoke.py computes it from each call's shapes):
+// at GPT-3 1.3B's shape (B4 S2048 H16 D128, causal, bf16) operations: 3
+// and 4 products over the causal triangle, 1.03e11 and 1.38e11 FLOP, take
+// 104 and 139 us at 989 TFLOP/s, against 60 us for the bytes (six
+// [B, S, H, D] tensors at 3.35 TB/s). The design runs every one of them
+// once, at the 16-bit rate, from swizzled tiles that no thread copies.
+// At BERT-base (B16 S128 H12 D64, bf16) bytes: 5.7 us each, against 1.2
+// and 1.6 us of products; each byte is copied once by TMA, with the copy
+// of the next stage in flight behind the products.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -456,7 +500,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   constexpr int PS = D + 4;
   constexpr int KD = D / 8;                 // 8-wide steps over the head dim
   constexpr int NJ = SR / 8;                // 8-key steps a stage
-  constexpr bool X = std::is_same<T, float>::value;   // staged inputs have a lo part
+  static_assert(std::is_same<T, float>::value, "fp32 only: bf16 and fp16 run the wgmma kernels");
   extern __shared__ __align__(16) float bsmem[];
   float* sQ = bsmem;
   float* sDO = sQ + BR * PS;
@@ -545,8 +589,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const FragA da = load_a<PS>(sDO, wr, 8 * kk);
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          mma3<X, X>(s[j], qa, load_b_rows<PS>(cK, 8 * j, 8 * kk));
-          mma3<X, X>(dp[j], da, load_b_rows<PS>(cV, 8 * j, 8 * kk));
+          mma3<true, true>(s[j], qa, load_b_rows<PS>(cK, 8 * j, 8 * kk));
+          mma3<true, true>(dp[j], da, load_b_rows<PS>(cV, 8 * j, 8 * kk));
         }
       }
 #pragma unroll
@@ -564,7 +608,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       for (int j = 0; j < NJ; ++j) {        // dQ += dS K
         const FragA a = acc_as_a(s[j]);
 #pragma unroll
-        for (int n = 0; n < KD; ++n) mma3<true, X>(acc[n], a, load_b_cols<PS>(cK, 8 * j, 8 * n));
+        for (int n = 0; n < KD; ++n) mma3<true, true>(acc[n], a, load_b_cols<PS>(cK, 8 * j, 8 * n));
       }
     }
     __syncthreads();                        // every warp is done with buffer i & 1
@@ -595,7 +639,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   constexpr int KD = D / 8;
   constexpr int NC = D == 64 ? SR : SR / 2;   // q columns a pass (registers: NC + D)
   constexpr int NJ = NC / 8;
-  constexpr bool X = std::is_same<T, float>::value;   // staged inputs have a lo part
+  static_assert(std::is_same<T, float>::value, "fp32 only: bf16 and fp16 run the wgmma kernels");
   extern __shared__ __align__(16) float bsmem[];
   float* sK = bsmem;
   float* sV = sK + BR * PS;
@@ -664,8 +708,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const FragA va = load_a<PS>(sV, wr, 8 * kk);
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          mma3<X, X>(st[j], ka, load_b_rows<PS>(cQ, c0 + 8 * j, 8 * kk));
-          mma3<X, X>(dpt[j], va, load_b_rows<PS>(cDO, c0 + 8 * j, 8 * kk));
+          mma3<true, true>(st[j], ka, load_b_rows<PS>(cQ, c0 + 8 * j, 8 * kk));
+          mma3<true, true>(dpt[j], va, load_b_rows<PS>(cDO, c0 + 8 * j, 8 * kk));
         }
       }
 #pragma unroll
@@ -691,8 +735,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const FragA sa = acc_as_a(dpt[j]);
 #pragma unroll
         for (int n = 0; n < KD; ++n) {
-          mma3<true, X>(dv_acc[n], pa, load_b_cols<PS>(cDO, c0 + 8 * j, 8 * n));
-          mma3<true, X>(dk_acc[n], sa, load_b_cols<PS>(cQ, c0 + 8 * j, 8 * n));
+          mma3<true, true>(dv_acc[n], pa, load_b_cols<PS>(cDO, c0 + 8 * j, 8 * n));
+          mma3<true, true>(dk_acc[n], sa, load_b_cols<PS>(cQ, c0 + 8 * j, 8 * n));
         }
       }
     }
@@ -713,6 +757,553 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     if (kp1 < sh.Sk) {
       store2(dk + row1 + c, dk_acc[n][2], dk_acc[n][3]);
       store2(dv + row1 + c, dv_acc[n][2], dv_acc[n][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 and K3 on bf16 and fp16: flash_bwd_dq_wgmma and flash_bwd_dkv_wgmma.
+// 16-bit tiles in shared memory, every product one wgmma at the 16-bit
+// rate, TMA copies into a ring that a producer warp keeps full.
+// ---------------------------------------------------------------------------
+constexpr int WGT = 128;       // threads a warpgroup
+constexpr int TR = 64;         // rows a consumer warpgroup owns; rows a streamed stage
+constexpr int NST = 3;         // stages of the ring
+
+// D 128: two consumer warpgroups, one block an SM; D 64: one consumer
+// warpgroup, three blocks an SM of K2 and two of K3. The producer is one
+// warp after the consumers. ptxas allocates every thread of a kernel
+// within its launch bounds, setmaxnreg or not (a producer warpgroup that
+// handed its registers on left K3 spilling at 168 and 128), and counts a
+// sub-partition's share of the register file: at D 128 the 9 warps put 3
+// on one of the 4, so 168 registers a thread (K3 still spills 292 bytes).
+template <int D> struct Cfg {
+  static constexpr int NWG = D == 128 ? 2 : 1;        // consumer warpgroups
+  static constexpr int THREADS = NWG * WGT + 32;      // and the producer warp
+  static constexpr int MIN_BLOCKS_DQ = D == 128 ? 1 : 3;
+  static constexpr int MIN_BLOCKS_DKV = D == 128 ? 1 : 2;
+  static constexpr int OWN = NWG * TR;                // rows of the block's own tile
+  static constexpr int OWN_TILE = OWN * D * 2;        // bytes of an own tile
+  static constexpr int STAGE_TILE = TR * D * 2;       // bytes of a streamed tile
+};
+
+// Shared memory of both kernels, in bytes from a 1024-aligned base: two own
+// tiles (K2: Q, dO; K3: K, V), NST stages of two streamed tiles (K2: K, V;
+// K3: Q, dO), two fp32 rows (K2: lse and delta of the own rows; K3: of each
+// stage's rows), the barriers full[NST], empty[NST] and own. A tile is D / 64
+// panels of [rows][64] 16-bit values in TMA's 128-byte swizzle, the layout
+// wgmma reads.
+template <int D> struct Smem {
+  using C = Cfg<D>;
+  static constexpr int A = 0, B = C::OWN_TILE;                 // own tiles
+  static constexpr int SA = 2 * C::OWN_TILE;                   // streamed tiles
+  static constexpr int SB = SA + NST * C::STAGE_TILE;
+  static constexpr int ROWS = C::OWN > NST * TR ? C::OWN : NST * TR;
+  static constexpr int LSE = SB + NST * C::STAGE_TILE;         // float[ROWS]
+  static constexpr int DELTA = LSE + 4 * ROWS;                 // float[ROWS]
+  static constexpr int BAR = DELTA + 4 * ROWS;
+  static constexpr size_t ALLOC = BAR + 8 * (2 * NST + 1) + 1024;   // + room to align
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// arrive, and expect `bytes` of TMA copies before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// waits for the phase of parity `parity` to complete; a phase that never
+// completes (a lost arrival) traps after about 10 s instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// a TMA copy of the [rows][64] box of a [B, S, H, D] tensor map at
+// (d0, h, s0, b) into shared memory, completing on `bar`; rows past S read 0
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int d0, int h,
+                                         int s0, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(h), "r"(s0), "r"(b), "r"(bar)
+      : "memory");
+}
+// rows [s0, s0 + ROWS) of head (b, h), all D / 64 panels, into the tile at dst
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int h, int s0,
+                                         int b, uint32_t bar) {
+#pragma unroll
+  for (int p = 0; p < D / 64; ++p) tma_load(dst + p * ROWS * 128, map, 64 * p, h, s0, b, bar);
+}
+
+// wgmma descriptor of an operand in shared memory in the 128-byte swizzle:
+// start address, leading byte offset `lbo`, stride byte offset 1024 (eight
+// rows of 128 bytes), layout type 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// K-major operand: rows [r0, r0 + 64) of a tile of R rows, columns
+// [16 kk, 16 kk + 16), 32 bytes into its panel's 128-byte rows
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return sw128_desc(tile + (kk / 4) * R * 128 + r0 * 128 + (kk % 4) * 32, 16);
+}
+// MN-major B operand: rows [k0, k0 + 16) of a tile of R rows are its K and
+// its columns its N, the next 64 columns one panel (R x 128 bytes) on
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int k0) {
+  return sw128_desc(tile + k0 * 128, R * 128);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are in flight
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving an accumulator across an asynchronous wgmma
+template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define PTT_ACC32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define PTT_ACC64 \
+  PTT_ACC32, \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PTT_R32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define PTT_R64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+template <typename T> __host__ __device__ constexpr bool is_bf16() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
+// d (+)= A B, m64n64k16, A (64 x 16) and B (16 x 64) K-major in shared
+// memory; acc = 0 starts the sum
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+#define PTT_SS(TY)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " PTT_R32   \
+               ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                     \
+               : PTT_ACC32                                                           \
+               : "l"(a), "l"(b), "r"(acc))
+  if constexpr (is_bf16<T>()) PTT_SS("bf16"); else PTT_SS("f16");
+#undef PTT_SS
+}
+
+// d += A B, m64nNk16 (N = 64 or 128): A (64 x 16) from registers, four
+// 16-bit pairs a thread in the accumulator's layout; B (16 x N) MN-major in
+// shared memory
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+#define PTT_RS64(TY)                                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " PTT_R32    \
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                        \
+               : PTT_ACC32                                                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+#define PTT_RS128(TY)                                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                           \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " PTT_R64   \
+               ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                        \
+               : PTT_ACC64                                                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+  if constexpr (N == 64) {
+    if constexpr (is_bf16<T>()) PTT_RS64("bf16"); else PTT_RS64("f16");
+  } else {
+    if constexpr (is_bf16<T>()) PTT_RS128("bf16"); else PTT_RS128("f16");
+  }
+#undef PTT_RS64
+#undef PTT_RS128
+}
+
+// two fp32 values rounded to T, to nearest even, as one register (lo first)
+template <typename T> __device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  uint32_t r;
+  if constexpr (is_bf16<T>()) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    memcpy(&r, &v, 4);
+  } else {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    memcpy(&r, &v, 4);
+  }
+  return r;
+}
+
+// A 64 x 64 accumulator as the A operands, rounded to T, of the four k16
+// steps of the next product: step kk takes columns 16 kk .. 16 kk + 15,
+// which the accumulator holds in d[8 kk .. 8 kk + 7] in the order wgmma
+// reads an A fragment (the layout below)
+template <typename T>
+__device__ __forceinline__ void acc_to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) a[kk][m] = pack16<T>(d[8 * kk + 2 * m], d[8 * kk + 2 * m + 1]);
+}
+
+// Each thread of a consumer warpgroup holds, of a 64 x N accumulator, rows
+// g and g + 8 of its warp's 16 (g = lane / 4) and in each 8-column chunk j
+// columns 8 j + 2 t and 8 j + 2 t + 1 (t = lane % 4): d[4 j + e] is row
+// g + 8 (e >= 2), column 8 j + 2 t + (e & 1).
+
+// ---------------------------------------------------------------------------
+// K2 on 16-bit inputs: dQ = sum_k dS K, one block a (b*h, q tile of OWN
+// rows), the key stages streamed; the prologue writes delta.
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS_DQ)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
+                   const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                   const T* __restrict__ o, const T* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq,
+                   Strides sq_st, Shape sh) {
+  using C = Cfg<D>;
+  using L = Smem<D>;
+  constexpr int OWN = C::OWN, KD = D / 16;  // k16 steps of S and dP
+  extern __shared__ __align__(1024) uint8_t wsmem[];
+  const uint32_t raw = smem_u32(wsmem);
+  uint8_t* sm = wsmem + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t base = smem_u32(sm);
+  float* sLse = reinterpret_cast<float*>(sm + L::LSE);
+  float* sDelta = reinterpret_cast<float*>(sm + L::DELTA);
+  const uint32_t full = base + L::BAR, empty = full + 8 * NST, own = empty + 8 * NST;
+
+  const int bh = blockIdx.x;
+  const int b = bh / sh.H, h = bh % sh.H;
+  // causal: the last q tiles see the most keys and launch first
+  const int q0 = (sh.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * OWN;
+  const int n_k = (sh.Sk + TR - 1) / TR;
+  // causal: a key stage that starts after this q tile's last row is skipped
+  const int end = sh.causal ? min(n_k, (q0 + OWN - 1) / TR + 1) : n_k;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + 8 * s, 32);            // the producer warp's lanes
+      mbar_init(empty + 8 * s, 4 * C::NWG);   // lane 0 of each consumer warp
+    }
+    mbar_init(own, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= C::NWG * WGT) {        // the producer warp
+    const int lane = threadIdx.x - C::NWG * WGT;
+    if (lane == 0) {
+      mbar_arrive_expect(own, 2 * C::OWN_TILE);
+      tma_tile<D, OWN>(base + L::A, &mq, h, q0, b, own);
+      tma_tile<D, OWN>(base + L::B, &mdo, h, q0, b, own);
+    }
+    for (int it = 0; it < end; ++it) {
+      const int s = it % NST;
+      mbar_wait(empty + 8 * s, ((it / NST) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect(full + 8 * s, 2 * C::STAGE_TILE);
+        tma_tile<D, TR>(base + L::SA + s * C::STAGE_TILE, &mk, h, it * TR, b, full + 8 * s);
+        tma_tile<D, TR>(base + L::SB + s * C::STAGE_TILE, &mv, h, it * TR, b, full + 8 * s);
+      } else {
+        mbar_arrive(full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x % WGT, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = (threadIdx.x / WGT) * TR;       // the warpgroup's first row of the tile
+  const int qw = q0 + rw;                         // and its q
+  {  // delta = rowsum(dO * O) of the warp's 16 rows, 8 lanes a row
+    const int sub = lane >> 3, part = lane & 7;
+#pragma unroll
+    for (int rr = 0; rr < 16; rr += 4) {     // unrolled: all loads in flight at once
+      const int r = rw + 16 * w + rr + sub, s = q0 + r;
+      float sum = 0.f;
+      if (s < sh.Sq) {
+        const int64_t off = b * sq_st.b + s * sq_st.s + h * sq_st.h;
+#pragma unroll
+        for (int d = 4 * part; d < D; d += 32) {
+          const float4 x = load4(o + off + d), y = load4(dout + off + d);
+          sum = fmaf(x.x, y.x, sum);
+          sum = fmaf(x.y, y.y, sum);
+          sum = fmaf(x.z, y.z, sum);
+          sum = fmaf(x.w, y.w, sum);
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      if (part == 0) {
+        const float l = s < sh.Sq ? lse[(int64_t)bh * sh.Sq + s] : NEG_INF;
+        sDelta[r] = sum;
+        // lse in log2 units; +inf for a row past Sq or with no key, so P = 0
+        sLse[r] = l > NEG_INF * 0.5f ? l * LOG2E : INFINITY;
+        if (s < sh.Sq) delta[(int64_t)bh * sh.Sq + s] = sum;
+      }
+    }
+  }
+  __syncwarp();
+  const int r0 = rw + 16 * w + g, r1 = r0 + 8;   // the thread's two rows of the tile
+  const int qp0 = q0 + r0, qp1 = q0 + r1;
+  const float l0 = sLse[r0], l1 = sLse[r1], dl0 = sDelta[r0], dl1 = sDelta[r1];
+  const float sl2 = sh.scale * LOG2E;             // exp(x scale) = exp2(x sl2)
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(own, 0);
+
+  for (int it = 0; it < end; ++it) {
+    const int s = it % NST, kb = it * TR;          // the stage's buffer and first key
+    const uint32_t cK = base + L::SA + s * C::STAGE_TILE, cV = base + L::SB + s * C::STAGE_TILE;
+    mbar_wait(full + 8 * s, (it / NST) & 1);
+    // causal: nothing to do when the stage's first key lies after the
+    // warpgroup's last row; nor for a warpgroup wholly past Sq
+    if (qw < sh.Sq && (!sh.causal || kb <= qw + TR - 1)) {
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      fence_acc(sc);
+      fence_acc(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)            // S = Q K^T
+        wgmma_ss<T>(sc, desc_k<OWN>(base + L::A, rw, kk), desc_k<TR>(cK, 0, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)            // dP = dO V^T
+        wgmma_ss<T>(dp, desc_k<OWN>(base + L::B, rw, kk), desc_k<TR>(cV, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(sc);
+      // P = exp(S scale - lse); masked: a key past Sk, or (causal) after the row
+      const bool edge = kb + TR > sh.Sk || (sh.causal && kb + TR - 1 > qw);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool lower = i & 2;
+        float p = exp2f(fmaf(sc[i], sl2, -(lower ? l1 : l0)));
+        if (edge) {
+          const int kp = kb + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (kp >= sh.Sk || (sh.causal && kp > (lower ? qp1 : qp0))) p = 0.f;
+        }
+        sc[i] = p;
+      }
+      wgmma_wait<0>();
+      fence_acc(dp);
+      // dS = P (dP - delta) scale, rounded to T as the reference does before dS K
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = sc[i] * (dp[i] - ((i & 2) ? dl1 : dl0)) * sh.scale;
+      uint32_t a[4][4];
+      acc_to_a<T>(sc, a);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)             // dQ += dS K
+        wgmma_rs<T, D>(acc, a[kk], desc_mn<TR>(cK, 16 * kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);    // the warp is done with buffer s
+  }
+
+  const int64_t row0 = b * sq_st.b + (int64_t)qp0 * sq_st.s + h * sq_st.h;
+  const int64_t row1 = row0 + 8 * sq_st.s;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (qp0 < sh.Sq) store2(dq + row0 + c, acc[4 * n], acc[4 * n + 1]);
+    if (qp1 < sh.Sq) store2(dq + row1 + c, acc[4 * n + 2], acc[4 * n + 3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 on 16-bit inputs: dV = sum_q P^T dO and dK = sum_q dS^T Q, one block a
+// (b*h, k tile of OWN rows), the q stages streamed with their lse and delta.
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS_DKV)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                    const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mdo,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dk, T* __restrict__ dv, Strides sk_st, Shape sh) {
+  using C = Cfg<D>;
+  using L = Smem<D>;
+  constexpr int OWN = C::OWN, KD = D / 16;
+  extern __shared__ __align__(1024) uint8_t wsmem[];
+  const uint32_t raw = smem_u32(wsmem);
+  uint8_t* sm = wsmem + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t base = smem_u32(sm);
+  float* sLse = reinterpret_cast<float*>(sm + L::LSE);       // [NST][TR]
+  float* sDelta = reinterpret_cast<float*>(sm + L::DELTA);   // [NST][TR]
+  const uint32_t full = base + L::BAR, empty = full + 8 * NST, own = empty + 8 * NST;
+
+  const int bh = blockIdx.x;
+  const int b = bh / sh.H, h = bh % sh.H;
+  const int k0 = blockIdx.y * OWN;           // causal: the first k tiles see the most q rows
+  const int n_q = (sh.Sq + TR - 1) / TR;
+  // causal: a q stage whose last row lies before this k tile sees none of it
+  const int i0 = sh.causal ? min(n_q, k0 / TR) : 0;
+  const int n_st = n_q - i0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, 4 * C::NWG);
+    }
+    mbar_init(own, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= C::NWG * WGT) {        // the producer warp
+    const int lane = threadIdx.x - C::NWG * WGT;
+    if (lane == 0) {
+      mbar_arrive_expect(own, 2 * C::OWN_TILE);
+      tma_tile<D, OWN>(base + L::A, &mk, h, k0, b, own);
+      tma_tile<D, OWN>(base + L::B, &mv, h, k0, b, own);
+    }
+    const float* lse_bh = lse + (int64_t)bh * sh.Sq;
+    const float* delta_bh = delta + (int64_t)bh * sh.Sq;
+    for (int it = 0; it < n_st; ++it) {
+      const int s = it % NST, qb = (i0 + it) * TR;
+      mbar_wait(empty + 8 * s, ((it / NST) & 1) ^ 1);
+#pragma unroll
+      for (int c = lane; c < TR; c += 32) {   // lse in log2 units (+inf: P = 0) and delta
+        const int qp = qb + c;
+        const float l = qp < sh.Sq ? lse_bh[qp] : NEG_INF;
+        sLse[s * TR + c] = l > NEG_INF * 0.5f ? l * LOG2E : INFINITY;
+        sDelta[s * TR + c] = qp < sh.Sq ? delta_bh[qp] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect(full + 8 * s, 2 * C::STAGE_TILE);
+        tma_tile<D, TR>(base + L::SA + s * C::STAGE_TILE, &mq, h, qb, b, full + 8 * s);
+        tma_tile<D, TR>(base + L::SB + s * C::STAGE_TILE, &mdo, h, qb, b, full + 8 * s);
+      } else {
+        mbar_arrive(full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x % WGT, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = (threadIdx.x / WGT) * TR;       // the warpgroup's first row of the tile
+  const int kw = k0 + rw;                         // and its key
+  const int kp0 = kw + 16 * w + g, kp1 = kp0 + 8; // the thread's two keys
+  const float sl2 = sh.scale * LOG2E;
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(own, 0);
+
+  for (int it = 0; it < n_st; ++it) {
+    const int s = it % NST, qb = (i0 + it) * TR;   // the stage's buffer and first q row
+    const uint32_t cQ = base + L::SA + s * C::STAGE_TILE, cDO = base + L::SB + s * C::STAGE_TILE;
+    const float* cl = sLse + s * TR;
+    const float* cd = sDelta + s * TR;
+    mbar_wait(full + 8 * s, (it / NST) & 1);
+    // causal: a stage whose last q row lies before the warpgroup's first
+    // key; nor a warpgroup wholly past Sk
+    if (kw < sh.Sk && (!sh.causal || qb + TR - 1 >= kw)) {
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      fence_acc(st);
+      fence_acc(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)            // S^T = K Q^T
+        wgmma_ss<T>(st, desc_k<OWN>(base + L::A, rw, kk), desc_k<TR>(cQ, 0, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)            // dP^T = V dO^T
+        wgmma_ss<T>(dpt, desc_k<OWN>(base + L::B, rw, kk), desc_k<TR>(cDO, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
+      // P^T in st and dS^T = P^T (dP^T - delta) scale in dpt; a q row past
+      // Sq or with no key has lse +inf; causal masks q < k
+      const bool edge = sh.causal && qb < kw + TR - 1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(cl + 8 * j + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(cd + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float p = exp2f(fmaf(st[i], sl2, -((e & 1) ? l2.y : l2.x)));
+          if (edge && qb + 8 * j + 2 * t + (e & 1) < ((e & 2) ? kp1 : kp0)) p = 0.f;
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - ((e & 1) ? d2.y : d2.x)) * sh.scale;
+        }
+      }
+      // both rounded to T, as the reference does before P^T dO and dS^T Q
+      uint32_t pa[4][4], sa[4][4];
+      acc_to_a<T>(st, pa);
+      acc_to_a<T>(dpt, sa);
+      fence_acc(dva);
+      fence_acc(dka);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)             // dV += P^T dO
+        wgmma_rs<T, D>(dva, pa[kk], desc_mn<TR>(cDO, 16 * kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)             // dK += dS^T Q
+        wgmma_rs<T, D>(dka, sa[kk], desc_mn<TR>(cQ, 16 * kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dva);
+      fence_acc(dka);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);    // the warp is done with buffer s
+  }
+
+  const int64_t row0 = b * sk_st.b + (int64_t)kp0 * sk_st.s + h * sk_st.h;
+  const int64_t row1 = row0 + 8 * sk_st.s;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (kp0 < sh.Sk) {
+      store2(dk + row0 + c, dka[4 * n], dka[4 * n + 1]);
+      store2(dv + row0 + c, dva[4 * n], dva[4 * n + 1]);
+    }
+    if (kp1 < sh.Sk) {
+      store2(dk + row1 + c, dka[4 * n + 2], dka[4 * n + 3]);
+      store2(dv + row1 + c, dva[4 * n + 2], dva[4 * n + 3]);
     }
   }
 }
@@ -767,6 +1358,95 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// The TMA map of a [B, S, H, D] 16-bit tensor, boxes of [rows][64] in the
+// 128-byte swizzle; rows past S read as zeros. A dimension of size 1 takes
+// the stride a contiguous tensor would have (torch leaves it free).
+template <typename T>
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t S, int64_t H,
+                       int64_t D, Strides st, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  if (H == 1) st.h = D;
+  if (S == 1) st.s = st.h * H;
+  if (B == 1) st.b = st.s * S;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, is_bf16<T>() ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
+      const_cast<void*>(ptr), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+cudaError_t launch_dq16(const Args& a) {
+  using C = Cfg<D>;
+  const int64_t H = a.sh.H, Sq = a.sh.Sq, Sk = a.sh.Sk;
+  CUtensorMap mq, mdo, mk, mv;
+  cudaError_t err;
+  if ((err = tensor_map<T>(&mq, a.q, a.B, Sq, H, D, a.sq_st, C::OWN)) != cudaSuccess ||
+      (err = tensor_map<T>(&mdo, a.dout, a.B, Sq, H, D, a.sq_st, C::OWN)) != cudaSuccess ||
+      (err = tensor_map<T>(&mk, a.k, a.B, Sk, H, D, a.sk_st, TR)) != cudaSuccess ||
+      (err = tensor_map<T>(&mv, a.v, a.B, Sk, H, D, a.sk_st, TR)) != cudaSuccess)
+    return err;
+  const size_t smem = Smem<D>::ALLOC;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)(a.B * H), (unsigned)((Sq + C::OWN - 1) / C::OWN));
+  flash_bwd_dq_wgmma<T, D><<<grid, C::THREADS, smem, a.stream>>>(
+      mq, mdo, mk, mv, (const T*)a.o, (const T*)a.dout, a.lse, a.delta_out, (T*)a.out_o,
+      a.sq_st, a.sh);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv16(const Args& a) {
+  using C = Cfg<D>;
+  const int64_t H = a.sh.H, Sq = a.sh.Sq, Sk = a.sh.Sk;
+  CUtensorMap mk, mv, mq, mdo;
+  cudaError_t err;
+  if ((err = tensor_map<T>(&mk, a.k, a.B, Sk, H, D, a.sk_st, C::OWN)) != cudaSuccess ||
+      (err = tensor_map<T>(&mv, a.v, a.B, Sk, H, D, a.sk_st, C::OWN)) != cudaSuccess ||
+      (err = tensor_map<T>(&mq, a.q, a.B, Sq, H, D, a.sq_st, TR)) != cudaSuccess ||
+      (err = tensor_map<T>(&mdo, a.dout, a.B, Sq, H, D, a.sq_st, TR)) != cudaSuccess)
+    return err;
+  const size_t smem = Smem<D>::ALLOC;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)(a.B * H), (unsigned)((Sk + C::OWN - 1) / C::OWN));
+  flash_bwd_dkv_wgmma<T, D><<<grid, C::THREADS, smem, a.stream>>>(
+      mk, mv, mq, mdo, a.lse, a.delta_in, (T*)a.out_a, (T*)a.out_b, a.sk_st, a.sh);
+  return cudaGetLastError();
+}
+
 // Blocks an SM holds of one kernel, into info: {blocks, threads, dynamic
 // shared bytes, rows a tile}
 template <typename K>
@@ -794,13 +1474,32 @@ int dispatch(int dtype, int64_t D, const X&... x) {
 }
 
 template <typename T, int D> struct Fwd { static cudaError_t run(const Args& a) { return launch_fwd<T, D>(a); } };
-template <typename T, int D> struct Dq { static cudaError_t run(const Args& a) { return launch_dq<T, D>(a); } };
-template <typename T, int D> struct Dkv { static cudaError_t run(const Args& a) { return launch_dkv<T, D>(a); } };
+// K2 and K3: fp32 on the 3xTF32 kernels, bf16 and fp16 on the wgmma ones
+template <typename T, int D> struct Dq {
+  static cudaError_t run(const Args& a) {
+    if constexpr (std::is_same<T, float>::value) return launch_dq<T, D>(a);
+    else return launch_dq16<T, D>(a);
+  }
+};
+template <typename T, int D> struct Dkv {
+  static cudaError_t run(const Args& a) {
+    if constexpr (std::is_same<T, float>::value) return launch_dkv<T, D>(a);
+    else return launch_dkv16<T, D>(a);
+  }
+};
 template <typename T, int D> struct Occ {
   static cudaError_t run(const int& which, int* const& info) {
     if (which == 0) return occupancy(flash_fwd_kernel<T, D>, BNT, fwd_smem<D>(), BR, info);
-    if (which == 1) return occupancy(flash_bwd_dq_kernel<T, D>, BNT, bwd_smem<D>(), BR, info);
-    return occupancy(flash_bwd_dkv_kernel<T, D>, BNT, bwd_smem<D>(), BR, info);
+    if constexpr (std::is_same<T, float>::value) {
+      if (which == 1) return occupancy(flash_bwd_dq_kernel<T, D>, BNT, bwd_smem<D>(), BR, info);
+      return occupancy(flash_bwd_dkv_kernel<T, D>, BNT, bwd_smem<D>(), BR, info);
+    } else {
+      if (which == 1)
+        return occupancy(flash_bwd_dq_wgmma<T, D>, Cfg<D>::THREADS, Smem<D>::ALLOC, Cfg<D>::OWN,
+                         info);
+      return occupancy(flash_bwd_dkv_wgmma<T, D>, Cfg<D>::THREADS, Smem<D>::ALLOC, Cfg<D>::OWN,
+                       info);
+    }
   }
 };
 

@@ -284,11 +284,15 @@ def _last_uses(ops, fetch_names) -> List[List[str]]:
     return dead
 
 
-def _steps(program: Program, fetch_names):
-    """The program's ops less feed and fetch, each with the names to
-    drop after it (:func:`_last_uses`)."""
-    ops = [op for op in program.global_block().ops
-           if op.type not in ("feed", "fetch")]
+def _program_ops(program: Program):
+    """The program's ops less feed and fetch."""
+    return [op for op in program.global_block().ops
+            if op.type not in ("feed", "fetch")]
+
+
+def _steps(ops, fetch_names):
+    """``ops``, each with the names to drop after it
+    (:func:`_last_uses`)."""
     return list(zip(ops, _last_uses(ops, set(fetch_names))))
 
 
@@ -300,7 +304,7 @@ def _pure_fn(program: Program, scope: Scope, feed_names, fetch_names,
     already collected by :func:`_model_params`."""
     if params is None:
         params = _model_params(program, scope)
-    steps = _steps(program, fetch_names)
+    steps = _steps(_program_ops(program), fetch_names)
 
     def fn(*feeds):
         env = dict(params)
@@ -373,26 +377,56 @@ def _probe_batch_dims(fn, specs_at):
 # ---------------------------------------------------------------------------
 # the exported artifact: a torch.export program (load path B)
 # ---------------------------------------------------------------------------
+def _fold_constants(ops, params: Dict[str, torch.Tensor], fetch_names,
+                    device):
+    """Constant folding, as XLA does for the JAX export: an op that has
+    inputs, all of them parameters or outputs of such ops, and writes
+    only names no op before it wrote runs once, here, on ``device``; a
+    name that an op left to trace writes is no longer known. Returns
+    the parameters and folded outputs that an op left to trace reads or
+    the program fetches, and the ops left to trace."""
+    env, known, written, rest = dict(params), set(params), set(params), []
+    with torch.no_grad(), op_device(device):
+        for op in ops:
+            ins = [n for n in op.input_names() if n]
+            outs = [n for n in op.output_names() if n]
+            if ins and known.issuperset(ins) and written.isdisjoint(outs):
+                run_op_desc(op, env)
+                known.update(outs)
+            else:
+                rest.append(op)
+                known.difference_update(outs)
+            written.update(outs)
+    needed = set(fetch_names).union(*(op.input_names() for op in rest))
+    return {n: env[n] for n in sorted(needed) if n in env}, rest
+
+
 class _ProgramModule(torch.nn.Module):
     """A loaded inference program as the module ``torch.export`` traces:
-    its parameters are buffers (``p0``, ``p1``, ... in the order of
-    their sorted names), ``forward(*feeds)`` runs the ops as
-    :func:`_pure_fn` does and returns the fetches. An op that does not
-    trace (one that reads a value on the host: ``.item()``,
-    ``.tolist()``, numpy) fails the export naming its type."""
+    the ops that read parameters only run once at export
+    (:func:`_fold_constants`); the parameters and folded outputs that
+    the other ops read or the program fetches are buffers (``b0``,
+    ``b1``, ... in the order of their sorted names); ``forward(*feeds)``
+    runs the other ops as :func:`_pure_fn` does and returns the
+    fetches. An op that reads a feed's value on the host (``.item()``,
+    ``.tolist()``, numpy) does not trace and fails the export naming its
+    type."""
 
     def __init__(self, program: Program, params: Dict[str, torch.Tensor],
-                 feed_names, fetch_names):
+                 feed_names, fetch_names, device):
         super().__init__()
-        self._names = sorted(params)
-        for i, name in enumerate(self._names):
-            self.register_buffer(f"p{i}", params[name])
+        bound, ops = _fold_constants(_program_ops(program), params,
+                                     fetch_names, device)
+        # (program name, buffer name) of every value bound before the feeds
+        self._bound = [(n, f"b{i}") for i, n in enumerate(bound)]
+        for n, buf in self._bound:
+            self.register_buffer(buf, bound[n])
         self._feed_names = list(feed_names)
         self._fetch_names = list(fetch_names)
-        self._steps = _steps(program, fetch_names)
+        self._steps = _steps(ops, fetch_names)
 
     def forward(self, *feeds):
-        env = {n: getattr(self, f"p{i}") for i, n in enumerate(self._names)}
+        env = {n: getattr(self, buf) for n, buf in self._bound}
         env.update(zip(self._feed_names, feeds))
         with op_device(feeds[0].device):
             for op, gone in self._steps:
@@ -402,7 +436,7 @@ class _ProgramModule(torch.nn.Module):
                     raise UnimplementedError(
                         f"export_stablehlo: op {op.type!r} does not trace "
                         f"under torch.export ({type(e).__name__}: {e}); an "
-                        f"op that reads a tensor's value on the host "
+                        f"op that reads a feed's value on the host "
                         f"cannot be exported, as under jax.export") from e
                 for n in gone:
                     env.pop(n, None)
@@ -448,7 +482,7 @@ def _export_model(model_dir, input_specs, dtypes):
     prog, feeds, fetches = load_inference_model(model_dir, Executor(dev),
                                                 scope=scope)
     params = _model_params(prog, scope)
-    module = _ProgramModule(prog, params, feeds, fetches)
+    module = _ProgramModule(prog, params, feeds, fetches, dev)
     args = tuple(_feed_specs(feeds, input_specs, dtypes, dev))
     exported = torch.export.export(module, args, strict=False)
     return exported, feeds, fetches, _meta_fn(prog, feeds, fetches, params)

@@ -35,11 +35,14 @@ Port of ``paddle_tpu/ops/flash_attention.py``. Layout [B, S, H, D].
   ``blockwise_route.calls`` counts the former beside the wrappers'
   ``launches``.
 
-Numerics: the plain versions take the score and P·V products in float32
-(the reference's ``preferred_element_type=float32``) and round P to the
-value dtype before P·V as the reference does, and so does K1. K1-K3 run
-every product on the tensor cores in 3xTF32 (fp32 accuracy, no plain
-TF32), and round only their outputs (and K1 its bf16 or fp16 P).
+Numerics: the plain versions take every product in float32 (the
+reference's ``preferred_element_type=float32``) and, on bf16 and fp16
+inputs, round P to the value dtype before P·V, and P and dS to the input
+dtype before the backward's P^T·dO, dS·K and dS^T·Q, as the reference
+does; K1-K3 round the same values. K1 (every dtype) and K2 / K3 on fp32
+run their products in 3xTF32 on the tensor cores (fp32 accuracy, no
+plain TF32); K2 and K3 on bf16 and fp16 run them on wgmma at the 16-bit
+rate, with fp32 accumulators.
 """
 from __future__ import annotations
 
@@ -116,6 +119,10 @@ def blockwise_attention_backward(q, k, v, o, lse, g, causal: bool,
     gf, qf = g.float(), q.float()
     if delta is None:
         delta = torch.einsum("bqhd,bqhd->bhq", gf, o.float())
+    # bf16 and fp16: P rounds to the input type before P^T dO, and dS before
+    # dS K and dS^T Q, as the reference and K2 / K3 round them; fp32 as is
+    rounded = (lambda x: x.to(q.dtype).float()) \
+        if q.dtype in (torch.bfloat16, torch.float16) else (lambda x: x)
     q_pos = torch.arange(sq, device=q.device)
     # rows whose every key is masked have lse == NEG_INF; zero their p
     row_valid = (lse > NEG_INF / 2)[..., None]               # [B, H, Sq, 1]
@@ -130,9 +137,9 @@ def blockwise_attention_backward(q, k, v, o, lse, g, causal: bool,
             k_pos = torch.arange(start, stop, device=q.device)
             s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
         p = torch.where(row_valid, torch.exp(s - lse[..., None]), 0.0)
-        dv[:, start:stop] = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+        dv[:, start:stop] = torch.einsum("bhqk,bqhd->bkhd", rounded(p), gf)
         dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-        ds = p * (dp - delta[..., None]) * scale
+        ds = rounded(p * (dp - delta[..., None]) * scale)
         dq += torch.einsum("bhqk,bkhd->bqhd", ds, kf)
         dk[:, start:stop] = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), delta

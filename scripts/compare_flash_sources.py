@@ -2,16 +2,23 @@
 """K1 (forward), K2 (dQ) and K3 (dK/dV) of versions of the flash-attention
 source, side by side on one card.
 
-    python3 scripts/compare_flash_sources.py NAME=path/to/flash_attention.cu ... [CONTROL ...]
+    python3 scripts/compare_flash_sources.py [--shape bert|gpt] [--dtype fp32|bf16|fp16] \
+        NAME=path/to/flash_attention.cu ... [CONTROL ...]
 
 Each version is built by ``kernels.build`` in place of
 ``paddle_tpu_torch/csrc/flash_attention.cu`` and launched through the
-port's wrappers. Per version it prints ptxas' report of K1-K3 (fp32,
-D=64); K1's o and lse and K2/K3's dq, dk and dv against float64 at
+port's wrappers, at a shape (``bert``: B16 S128 H12 D64, the default;
+``gpt``: B4 S2048 H16 D128 causal) in a dtype (fp32 by default). Per
+version it prints ptxas' report of K1-K3 at that dtype and head dim. In
+fp32: K1's o and lse and K2/K3's dq, dk and dv against float64 at
 BERT-base, plain and with q scaled by 8 (``chip_smoke.fp64_errors``), and
-K1's o element by element with q scaled by 8 (``sharp_o``); the times of
-K1, K2, K3 and the K2 + K3 pair (``chip_smoke.cuda_ms``), the versions in
-turns (a, b, ..., b, a) ROUNDS times, median and least. A CONTROL adds
+K1's o element by element with q scaled by 8 (``sharp_o``); in bf16 and
+fp16: K2/K3's relative Frobenius error against the plain backward in
+fp32 at the shape (``chip_smoke.bwd_frobenius``). Then the times of K1,
+K2, K3 and the K2 + K3 pair (``chip_smoke.cuda_ms``) at the shape and
+dtype, the versions in turns (a, b, ..., b, a) ROUNDS times, median and
+least, beside SDPA's backward (one call for dq, dk and dv) timed in the
+same turns. A CONTROL adds
 the BERT-base O1 losses of seed 0 and step_ms (``chip_smoke.phase_bert``)
 of each version and each control, in turns; a control runs the last
 version with one part replaced on the card: ``plain`` the plain backward
@@ -39,6 +46,10 @@ from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops import kernels  # noqa: E402
 
 ROUNDS = 2
+SHAPES = {"bert": chip_smoke.BERT_SHAPE, "gpt": chip_smoke.GPT_SHAPE}
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+          "fp16": torch.float16}
+CALLS = {"bert": 50, "gpt": 10}         # cuda_ms calls a time
 
 
 def use(path):
@@ -46,33 +57,48 @@ def use(path):
     return kernels.build(sources={"flash_attention": path})["flash_attention"]
 
 
-def timing(versions, dev):
-    b, s, h, d, causal = chip_smoke.BERT_SHAPE
+def _inputs(dev, shape, dtype, seed=7):
+    b, s, h, d, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(b, s, h, d, generator=gen, device=dev)
+                 .to(dtype) for _ in range(4))
+
+
+def timing(versions, dev, shape_name, dtype):
+    shape = SHAPES[shape_name]
+    causal, d, n = shape[4], shape[3], CALLS[shape_name]
     scale = 1.0 / math.sqrt(d)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev)
-                  for _ in range(4))
-    o, lse = fa.blockwise_attention(q, k, v, scale=scale)
-    o = o.contiguous()
+    q, k, v, g = _inputs(dev, shape, dtype)
+    o, lse = fa.blockwise_attention(q, k, v, causal=causal, scale=scale)
+    o = o.to(dtype).contiguous()
     k2 = lambda: fa.flash_bwd_dq(q, k, v, o, g, lse, causal, scale)  # noqa: E731
+    qr, kr, vr = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qr, kr, vr, is_causal=causal)
+    gt = g.transpose(1, 2)
+    sdpa = lambda: torch.autograd.grad(  # noqa: E731
+        out, (qr, kr, vr), gt, retain_graph=True)
     times = {name: [] for name in versions}
     for name in (list(versions) + list(reversed(list(versions)))) * ROUNDS:
         use(versions[name])
         _, delta = k2()
         times[name].append((
             chip_smoke.cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale),
-                               50),
-            chip_smoke.cuda_ms(k2, 50),
+                               n),
+            chip_smoke.cuda_ms(k2, n),
             chip_smoke.cuda_ms(lambda: fa.flash_bwd_dkv(
-                q, k, v, g, lse, delta, causal, scale), 50),
+                q, k, v, g, lse, delta, causal, scale), n),
             chip_smoke.cuda_ms(lambda: fa.flash_bwd_dkv(
-                q, k, v, g, lse, k2()[1], causal, scale), 50)))
+                q, k, v, g, lse, k2()[1], causal, scale), n),
+            chip_smoke.cuda_ms(sdpa, n)))
     for name, ts in times.items():
         cols = [f"{what} {statistics.median(x * 1e3 for x in col):.2f} us "
-                f"(least {min(col) * 1e3:.2f})"
-                for what, col in zip(("K1", "K2", "K3", "pair"), zip(*ts))]
-        print(f"[time] {name:<12} " + "  ".join(cols) +
-              f"  over {len(ts)} turns")
+                f"(least {min(col) * 1e3:.2f}, most {max(col) * 1e3:.2f})"
+                for what, col in zip(("K1", "K2", "K3", "pair", "sdpa_bwd"),
+                                     zip(*ts))]
+        print(f"[time] {shape_name} {str(dtype)[6:]} {name:<12} "
+              + "  ".join(cols) + f"  over {len(ts)} turns")
 
 
 def sharp_o(dev):
@@ -147,24 +173,57 @@ CONTROLS = {"plain": plain_backward, "plain_fwd": plain_forward,
                for i in range(1, 5)}}
 
 
+def _ptxas(name, lines, dtype, d):
+    """ptxas' registers, spills and shared memory of K1-K3's instances at
+    ``dtype`` and head dim ``d``."""
+    mangled = {torch.float32: "f", torch.bfloat16: "13__nv_bfloat16",
+               torch.float16: "6__half"}[dtype]
+    for i, line in enumerate(lines):
+        m = chip_smoke._INSTANCE.search(line)
+        if "Compiling entry" in line and m and m.group(2) == mangled \
+                and int(m.group(3)) == d:
+            print(f"[ptxas] {name:<12} {m.group(1)} | "
+                  f"{lines[i + 2].strip()} | {lines[i + 3].strip()}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("compare_flash_sources: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    controls = [a for a in sys.argv[1:] if a in CONTROLS]
-    versions = dict(a.split("=", 1) for a in sys.argv[1:]
-                    if a not in CONTROLS)
+    args, shape_name, dtype_name = list(sys.argv[1:]), "bert", "fp32"
+    for flag in ("--shape", "--dtype"):
+        if flag in args:
+            i = args.index(flag)
+            value = args[i + 1]
+            del args[i:i + 2]
+            if flag == "--shape":
+                shape_name = value
+            else:
+                dtype_name = value
+    dtype = DTYPES[dtype_name]
+    controls = [a for a in args if a in CONTROLS]
+    versions = dict(a.split("=", 1) for a in args if a not in CONTROLS)
     dev = torch.device("cuda")
     print(chip_smoke.card_line())
     for name, path in versions.items():
-        lines = use(path)["ptxas"].splitlines()
-        for i, line in enumerate(lines):
-            if "Compiling entry" in line and any(
-                    f"{fn}IfLi64" in line for fn in
-                    chip_smoke.KERNEL_FN.values()):
-                print(f"[ptxas] {name:<12} {line.split('entry function')[-1]}"
-                      f" | {lines[i + 2].strip()} | {lines[i + 3].strip()}")
+        _ptxas(name, use(path)["ptxas"].splitlines(), dtype,
+               SHAPES[shape_name][3])
+        if dtype != torch.float32:
+            shape = SHAPES[shape_name]
+            causal, scale = shape[4], 1.0 / math.sqrt(shape[3])
+            q, k, v, g = _inputs(dev, shape, dtype, seed=23)
+            o, lse = fa.flash_fwd(q, k, v, causal, scale)
+            dq, delta = fa.flash_bwd_dq(q, k, v, o, g, lse, causal, scale)
+            got = (dq,) + fa.flash_bwd_dkv(q, k, v, g, lse, delta, causal,
+                                           scale)
+            frob, _ = chip_smoke.bwd_frobenius(fa, q, k, v, o, lse, g,
+                                               causal, got)
+            print(f"[frob] {name:<12} {shape_name} {dtype_name} K2/K3 "
+                  f"against the plain backward in fp32: "
+                  + " ".join(f"{n} {e:.3e}" for n, e in frob.items()))
+            del q, k, v, g, o, lse, dq, delta, got
+            continue
         for q_mul in (1.0, 8.0):
             errs = chip_smoke.fp64_errors(fa, dev, q_mul)
             print(f"[fp64] {name:<12} q*{q_mul:g} relative Frobenius "
@@ -174,7 +233,7 @@ def main():
               f"the tolerance, {n_past} elements past it; largest |o - o64| "
               f"K1 {k1_err:.3e}, plain {plain_err:.3e}; against o64 worst "
               f"K1 {k1_sh:.3f}, plain {plain_sh:.3f} of the tolerance")
-    timing(versions, dev)
+    timing(versions, dev, shape_name, dtype)
     runs = list(versions) + controls if controls else []
     for name in runs + runs[-2::-1]:          # a, b, ..., b, a
         print(f"[bert] {name}")

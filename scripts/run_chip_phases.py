@@ -9,8 +9,8 @@ its ``chip_smoke.py`` and ``paddle_tpu_torch`` are imported, its kernels
 built into its own ``build/``. PHASE is one of ``bert`` (phase bert, then
 one O1 step under the profiler: launches, host syncs, device busy),
 ``bert_o2``, ``eager_bert``, ``tensor_api``, ``nn_api``, ``nn_layers``,
-``cyclegan``, ``cf_api``, ``control_flow``, ``ptb_lm``, ``seq_ops``,
-``rnnlm_eager``, ``sentiment_lstm``, ``decode_ops``, ``crnn``,
+``cyclegan``, ``gpt_tiny``, ``cf_api``, ``control_flow``, ``ptb_lm``,
+``seq_ops``, ``rnnlm_eager``, ``sentiment_lstm``, ``decode_ops``, ``crnn``,
 ``rcnn_ops``, ``faster_rcnn``, ``static_builders``, ``static_ernie``
 (then K1-K3 at its shape, ``phase_ernie_kernels``), ``dy2static_nmt``
 (then K1-K3 at its shape, ``phase_nmt_kernels``), ``static_decoders``,
@@ -93,6 +93,8 @@ def main():
             cs.phase_control_flow(tpt, dev)
         elif ph == "ptb_lm":
             cs.phase_ptb_lm(tpt, dev)
+        elif ph == "gpt_tiny":
+            cs.phase_gpt_tiny(tpt, fa, dev)
         elif ph == "seq_ops":
             cs.phase_seq_ops(dev)
         elif ph == "rnnlm_eager":

@@ -209,24 +209,87 @@ def test_flash_fwd_custom_op_opcheck(d, causal):
     assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
 
 
-def test_export_names_the_op_that_reads_the_host(tmp_path):
-    """``range`` reads its End on the host: the export fails naming it."""
-    prog = tpt.Program()
+def _save_range_program(pkg, path, end_is_feed):
+    """x -> (range(0, End, 1), 2 x), saved by ``pkg``: ``range`` reads its
+    End on the host, from the parameter ``n`` (5.0) or from a feed ``n``."""
+    prog = pkg.Program()
     blk = prog.global_block()
     blk.create_var("x", shape=(-1, 4), dtype="float32", is_data=True)
-    blk.create_var("n", shape=(), dtype="float32", persistable=True)
+    if end_is_feed:
+        blk.create_var("n", shape=(), dtype="float32", is_data=True)
+    else:
+        blk.create_var("n", shape=(), dtype="float32", persistable=True)
     for v in ("r", "y"):
         blk.create_var(v)
     blk.append_op("range", {"End": ["n"]}, {"Out": ["r"]},
                   {"start": 0.0, "step": 1.0, "dtype": "float32"})
     blk.append_op("scale", {"X": ["x"]}, {"Out": ["y"]}, {"scale": 2.0})
+    scope = pkg.Scope()
+    if not end_is_feed:
+        scope.var("n").set(pkg.TpuTensor(np.float32(5.0)))
+    feeds = ["x", "n"] if end_is_feed else ["x"]
+    with pkg.scope_guard(scope):
+        pkg.io.save_inference_model(path, feeds, ["r", "y"], pkg.Executor(),
+                                    prog, scope=scope)
+
+
+def test_export_folds_the_op_that_reads_a_parameter_on_the_host(tmp_path):
+    """``range`` over a parameter runs once at export (constant folding,
+    as XLA's): the archive gives what the JAX package's export gives."""
+    path = str(tmp_path / "m")
+    _save_range_program(jpt, path, end_is_feed=False)
+    x = np.random.RandomState(3).randn(2, 4).astype(np.float32)
+    jblob = str(tmp_path / "m.jaxexport")
+    jinference.export_stablehlo(path, {"x": (2, 4)}, jblob)
+    want = jinference.load_exported(jblob)(x)
+    pt2 = str(tmp_path / "m.pt2")
+    inference.export_stablehlo(path, {"x": (2, 4)}, pt2)
+    got = inference.load_exported(pt2)(torch.from_numpy(x))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(got[0].numpy(), np.arange(5.0))
+    kinds = [s.kind.name for s in
+             torch.export.load(pt2).graph_signature.input_specs]
+    # range's output; the parameter only range reads is not kept
+    assert kinds.count("BUFFER") == 1
+
+
+def test_export_traces_what_reads_a_name_a_traced_op_rewrote(tmp_path):
+    """y = 3 (x + 2 w), with ``a`` written first from the parameter ``w``
+    and then again by an op over the feed: the op after the rewrite
+    reads the feed's value, so it is traced, not folded."""
+    prog = tpt.Program()
+    blk = prog.global_block()
+    blk.create_var("x", shape=(-1, 4), dtype="float32", is_data=True)
+    blk.create_var("w", shape=(4,), dtype="float32", persistable=True)
+    for v in ("a", "y"):
+        blk.create_var(v)
+    blk.append_op("scale", {"X": ["w"]}, {"Out": ["a"]}, {"scale": 2.0})
+    blk.append_op("elementwise_add", {"X": ["x"], "Y": ["a"]},
+                  {"Out": ["a"]}, {"axis": -1})
+    blk.append_op("scale", {"X": ["a"]}, {"Out": ["y"]}, {"scale": 3.0})
+    rng = np.random.RandomState(5)
+    w = rng.randn(4).astype(np.float32)
+    x = rng.randn(2, 4).astype(np.float32)
     scope = tpt.Scope()
-    scope.var("n").set(tpt.TpuTensor(np.float32(5.0)))
+    scope.var("w").set(tpt.TpuTensor(w))
+    path, pt2 = str(tmp_path / "m"), str(tmp_path / "m.pt2")
     with tpt.scope_guard(scope):
-        tpt.io.save_inference_model(str(tmp_path / "m"), ["x"], ["r", "y"],
-                                    tpt.Executor(), prog, scope=scope)
+        tpt.io.save_inference_model(path, ["x"], ["y"], tpt.Executor(),
+                                    prog, scope=scope)
+    inference.export_stablehlo(path, {"x": (2, 4)}, pt2)
+    (got,) = inference.load_exported(pt2)(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), 3 * (x + 2 * w), rtol=1e-6)
+
+
+def test_export_names_the_op_that_reads_a_feed_on_the_host(tmp_path):
+    """``range`` over a feed reads a traced value on the host: the export
+    fails naming it."""
+    path = str(tmp_path / "m")
+    _save_range_program(tpt, path, end_is_feed=True)
     with pytest.raises(UnimplementedError, match="op 'range'"):
-        inference.export_stablehlo(str(tmp_path / "m"), {"x": (2, 4)})
+        inference.export_stablehlo(path, {"x": (2, 4), "n": ()})
 
 
 @pytest.mark.parametrize("name", ["export_pjrt_artifact",

@@ -9,7 +9,14 @@ Tolerances, float32 on the CPU: o and lse at rtol 1e-4 / atol 1e-5 (two
 fp32 computations that sum in other orders); gradients at rtol 2e-3 /
 atol 3e-4, the bound test_flash_tpu.py uses on the CPU (the gradient
 sums run over up to 512 keys). bfloat16 outputs round to 8 mantissa
-bits, so bf16 cases compare at rtol / atol 2e-2.
+bits, so bf16 cases compare at rtol / atol 2e-2; float16 outputs to 11,
+so fp16 cases at rtol / atol 4e-3 (chip_smoke.FP16_TOL: a few fp16 ulps
+of values near 1). On 16-bit inputs the port rounds P to the input type
+before P^T dO and dS before dS K and dS^T Q, as the reference's kernels
+write it and as the TPU's MXU rounds P at default precision; the Pallas
+kernels in interpret mode on the CPU keep P in fp32 (the reference widens
+dO, so P^T dO is an fp32 product there), which the 16-bit tolerances
+cover: one rounding of P moves dv by about an ulp of the input type.
 
 The kernels themselves are held against these plain versions on the card
 by tests/test_torch_kernels_cuda.py and chip_smoke.py.
@@ -42,6 +49,8 @@ BWD_CASES = [
     (1, 130, 2, 128, False),     # ragged, d=128
 ]
 BF16_CASES = [(2, 100, 3, 64, True), (1, 130, 2, 128, False)]
+FP16_CASES = [(2, 100, 3, 64, True), (1, 130, 2, 128, False),
+              (1, 256, 2, 64, False)]
 CROSS_CASES = [
     # (b, sq, sk, h, d, causal): Sq != Sk, as tests/test_torch_kernels_cuda.py
     (1, 64, 192, 4, 64, False),
@@ -53,6 +62,7 @@ CROSS_CASES = [
 O_TOL = dict(rtol=1e-4, atol=1e-5)
 G_TOL = dict(rtol=2e-3, atol=3e-4)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+FP16_TOL = dict(rtol=4e-3, atol=4e-3)
 
 
 def _mk(b, s, h, d, seed):
@@ -153,24 +163,24 @@ def test_autograd_function_matches_jax_grad(b, s, h, d, causal):
         np.testing.assert_allclose(_np(got), np.asarray(want), **G_TOL)
 
 
-@pytest.mark.parametrize("b,s,h,d,causal", BF16_CASES)
-def test_bf16_matches_jax(b, s, h, d, causal):
+def _half_matches_jax(b, s, h, d, causal, dtype, jdtype, tol):
+    """The plain forward and backward on ``dtype`` inputs against JAX's
+    blockwise forward and the Pallas backward (interpret mode) on the
+    same inputs cast to ``jdtype``."""
     q, k, v, g = _mk(b, s, h, d, seed=6)
     scale = 1.0 / d ** 0.5
-    jq, jk, jv, jg = (jnp.asarray(a).astype(jnp.bfloat16)
-                      for a in (q, k, v, g))
-    tq, tk, tv, tg = _t(q, k, v, g, dtype=torch.bfloat16)
+    jq, jk, jv, jg = (jnp.asarray(a).astype(jdtype) for a in (q, k, v, g))
+    tq, tk, tv, tg = _t(q, k, v, g, dtype=dtype)
     o, lse = tfa.flash_fwd(tq, tk, tv, causal, scale, block_size=128)
-    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert o.dtype == dtype and lse.dtype == torch.float32
     jo, jlse = jfa.blockwise_attention(jq, jk, jv, causal=causal,
                                        scale=scale, block_size=128)
-    np.testing.assert_allclose(_np(o), np.asarray(jo, np.float32),
-                               **BF16_TOL)
+    np.testing.assert_allclose(_np(o), np.asarray(jo, np.float32), **tol)
     np.testing.assert_allclose(_np(lse), np.asarray(jlse), **O_TOL)
-    jo16 = jnp.asarray(jo).astype(jnp.bfloat16)
+    jo16 = jnp.asarray(jo).astype(jdtype)
     want = jfa._flash_bwd_pallas(jq, jk, jv, jo16, jlse, jg, causal, scale,
                                  block_q=128, block_k=128, interpret=True)
-    to = torch.from_numpy(np.asarray(jo16, np.float32)).to(torch.bfloat16)
+    to = torch.from_numpy(np.asarray(jo16, np.float32)).to(dtype)
     dq, delta = tfa.flash_bwd_dq(tq, tk, tv, to, tg,
                                  torch.from_numpy(np.array(jlse)),
                                  causal, scale, block_size=128)
@@ -178,9 +188,70 @@ def test_bf16_matches_jax(b, s, h, d, causal):
                                torch.from_numpy(np.array(jlse)), delta,
                                causal, scale, block_size=128)
     for got, w in zip((dq, dk, dv), want):
-        assert got.dtype == torch.bfloat16
+        assert got.dtype == dtype
         np.testing.assert_allclose(_np(got), np.asarray(w, np.float32),
-                                   **BF16_TOL)
+                                   **tol)
+
+
+@pytest.mark.parametrize("b,s,h,d,causal", BF16_CASES)
+def test_bf16_matches_jax(b, s, h, d, causal):
+    _half_matches_jax(b, s, h, d, causal, torch.bfloat16, jnp.bfloat16,
+                      BF16_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,d,causal", FP16_CASES)
+def test_fp16_matches_jax(b, s, h, d, causal):
+    _half_matches_jax(b, s, h, d, causal, torch.float16, jnp.float16,
+                      FP16_TOL)
+
+
+def _backward_before_16bit_rounding(q, k, v, o, lse, g, causal, scale,
+                                    block_size=512):
+    """``blockwise_attention_backward`` as it was before it rounded P and
+    dS on 16-bit inputs: what fp32 inputs must still get, bit for bit."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    blk = min(block_size, sk)
+    gf, qf = g.float(), q.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", gf, o.float())
+    q_pos = torch.arange(sq)
+    row_valid = (lse > tfa.NEG_INF / 2)[..., None]
+    dq = torch.zeros((b, sq, h, d), dtype=torch.float32)
+    dk = torch.empty((b, sk, h, d), dtype=torch.float32)
+    dv = torch.empty_like(dk)
+    for start in range(0, sk, blk):
+        stop = min(start + blk, sk)
+        kf, vf = k[:, start:stop].float(), v[:, start:stop].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+        if causal:
+            k_pos = torch.arange(start, stop)
+            s = torch.where(q_pos[:, None] >= k_pos[None, :], s, tfa.NEG_INF)
+        p = torch.where(row_valid, torch.exp(s - lse[..., None]), 0.0)
+        dv[:, start:stop] = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+        dk[:, start:stop] = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq, dk, dv, delta
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", [(2, 100, 100, 3, 64, True),
+                                                (2, 130, 60, 3, 64, False)])
+def test_fp32_backward_arithmetic_unchanged(b, sq, sk, h, d, causal):
+    """fp32 inputs take exactly the arithmetic they took before 16-bit
+    inputs rounded P and dS: equal bits."""
+    rs = np.random.RandomState(12)
+    q, g = (rs.randn(b, sq, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(b, sk, h, d).astype(np.float32) for _ in range(2))
+    tq, tk, tv, tg = _t(q, k, v, g)
+    o, lse = tfa.blockwise_attention(tq, tk, tv, causal=causal, scale=0.125,
+                                     block_size=64)
+    got = tfa.blockwise_attention_backward(tq, tk, tv, o, lse, tg, causal,
+                                           0.125, block_size=64)
+    want = _backward_before_16bit_rounding(tq, tk, tv, o, lse, tg, causal,
+                                           0.125, block_size=64)
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32 and torch.equal(x, y)
 
 
 @pytest.mark.parametrize("causal", [False, True])

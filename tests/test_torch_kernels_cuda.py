@@ -126,12 +126,16 @@ def test_sharp_softmax_matches_plain(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,sq,sk,h,d,causal",
-                         [BERT_BASE, (2, 130, 60, 3, 64, True)])
+                         [BERT_BASE, (2, 130, 60, 3, 64, True),
+                          (1, 130, 60, 2, 128, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_backward_kernels_bitwise_deterministic(cuda, b, sq, sk, h, d,
-                                                causal):
+                                                causal, dtype):
     """No atomics: two launches on the same inputs give the same bits, K1's
-    as well as K2's and K3's."""
-    q, k, v, g = _inputs(cuda, b, sq, sk, h, d, torch.float32)
+    as well as K2's and K3's (the 3xTF32 kernels on fp32, the wgmma ones
+    on bf16 and fp16)."""
+    q, k, v, g = _inputs(cuda, b, sq, sk, h, d, dtype)
     scale = 1.0 / math.sqrt(d)
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
     o2, lse2 = fa.flash_fwd(q, k, v, causal, scale)
@@ -143,6 +147,21 @@ def test_backward_kernels_bitwise_deterministic(cuda, b, sq, sk, h, d,
         runs.append((dq, delta, dk, dv))
     for first, second in zip(*runs):
         assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_16bit_backward_runs_wgmma(cuda):
+    """K2 and K3 on bf16 and fp16, D 64 and 128: wgmma (HGMMA) in their
+    SASS and no TF32 product; the fp32 instances keep their TF32 HMMA."""
+    kernels.library("flash_attention")             # built
+    counts = chip_smoke.hmma_counts(kernels._target("flash_attention"))
+    for wrapper in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for d in (64, 128):
+            for dname in ("bf16", "f16"):
+                hmma, hgmma, tf32, _ = counts[
+                    (chip_smoke.kernel_fn(wrapper, dname), dname, d)]
+                assert hgmma > 0 and tf32 == 0, (wrapper, dname, d)
+            assert counts[(chip_smoke.KERNEL_FN[wrapper], "f32", d)][2] > 0
 
 
 # mma3's two lo passes: without them K1-K3 compute in plain TF32
